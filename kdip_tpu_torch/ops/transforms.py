@@ -1,0 +1,44 @@
+"""Orthonormal transforms for the learned-covariance guidance (PyTorch port
+of `kdip_tpu/ops/transforms.py:152-198`; ref: condition/utils.py:50-163).
+NCHW. The DWT is the hand-written kernel of `ops.dwt` on the card."""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from . import dwt as _dwt
+
+
+class OrthoTransform:
+    """Callable pair (forward, inverse) of an orthonormal transform:
+    None is the identity, "dwt" the packed `level`-level Haar DWT
+    (ref: condition/utils.py:50-77)."""
+
+    def __init__(self, ortho_tf_type: Optional[str] = None, level: int = 3):
+        self.ortho_tf_type = ortho_tf_type
+        self.level = level
+        if ortho_tf_type == "dct":
+            raise NotImplementedError(
+                "the DCT transform (DCT-Var) is not ported yet: a later slice")
+        if ortho_tf_type not in (None, "dwt"):
+            raise ValueError(f"unknown ortho_tf_type: {ortho_tf_type}")
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ortho_tf_type is None:
+            return x
+        return _dwt.dwt2(x, self.level)
+
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ortho_tf_type is None:
+            return x
+        return _dwt.idwt2(x, self.level)
+
+
+def ot_covariance(ortho_tf: OrthoTransform, variance: torch.Tensor) -> Callable:
+    """C = W diag(v) W^T as a matvec closure
+    (ref: condition/utils.py:146-163 LazyOTCovariance)."""
+    def matvec(x):
+        return ortho_tf.inv(ortho_tf(x) * variance)
+    return matvec

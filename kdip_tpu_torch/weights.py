@@ -1,0 +1,120 @@
+"""Parameter trees between `kdip_tpu`'s flax layout and the port's state
+dicts, and the bfloat16 inference pre-cast.
+
+`from_jax_params` is the inverse of `kdip_tpu.ckpt.convert_adm_state_dict`
+(ckpt.py:42-129) plus the V2 `out_cov` head (ckpt.py:281-286): it takes a
+nested dict of numpy arrays in the flax ADMUNet layout and returns a
+guided-diffusion state dict (NCHW/OIHW), which loads into
+`models.adm.ADMUNet`, or, for a {"unet", "out_cov"} tree, into
+`models.adm.ADMUNetV2`. This module needs no JAX: it reads numpy arrays.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .models.layers import GroupNorm32
+
+# flax sub-path inside a block -> guided-diffusion sub-module
+# (inverse of kdip_tpu/ckpt.py:42-54)
+_BLOCK_LEAVES = {
+    ("in_norm", "GroupNorm_0"): "in_layers.0",
+    ("in_conv",): "in_layers.2",
+    ("emb_proj",): "emb_layers.1",
+    ("out_norm", "GroupNorm_0"): "out_layers.0",
+    ("out_conv",): "out_layers.3",
+    ("skip",): "skip_connection",
+    ("norm", "GroupNorm_0"): "norm",
+    ("qkv",): "qkv",
+    ("proj_out",): "proj_out",
+}
+# flax Dense layers that are 1x1 Conv1d in guided-diffusion
+_CONV1D = ("qkv", "proj_out")
+_BLOCK_RE = re.compile(r"^(input_blocks|output_blocks)_(\d+)_(\d+)$|"
+                       r"^(middle_block)_(\d+)$")
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v, np.float32)
+
+
+def _leaf(pname: str, w: np.ndarray, conv1d: bool) -> tuple:
+    """flax param (name, array) -> (torch param name, array)."""
+    if pname == "bias":
+        return "bias", w
+    if pname == "scale":
+        return "weight", w
+    if pname != "kernel":
+        raise KeyError(f"unmapped flax param {pname!r}")
+    if w.ndim == 4:  # conv HWIO -> OIHW
+        return "weight", w.transpose(3, 2, 0, 1)
+    if conv1d:  # Dense I O -> Conv1d O I 1
+        return "weight", w.T[..., None]
+    return "weight", w.T  # Dense I O -> Linear O I
+
+
+def _unet_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, w in _flatten(params):
+        top, pname = path[0], path[-1]
+        if top in ("time_embed_1", "time_embed_2"):
+            mod = {"time_embed_1": "time_embed.0",
+                   "time_embed_2": "time_embed.2"}[top]
+            conv1d = False
+        elif top in ("out_norm", "out_conv"):
+            mod = {"out_norm": "out.0", "out_conv": "out.2"}[top]
+            conv1d = False
+        else:
+            m = _BLOCK_RE.match(top)
+            if m is None:
+                raise KeyError(f"unmapped flax module {top!r}")
+            if m.group(1):
+                block = f"{m.group(1)}.{m.group(2)}.{m.group(3)}"
+            else:
+                block = f"middle_block.{m.group(5)}"
+            rest = tuple(path[1:-1])
+            if rest == ():  # input_blocks_0_0: the stem conv
+                mod, conv1d = block, False
+            else:
+                if rest not in _BLOCK_LEAVES:
+                    raise KeyError(f"unmapped flax path {'/'.join(path)}")
+                mod, conv1d = f"{block}.{_BLOCK_LEAVES[rest]}", rest[0] in _CONV1D
+        name, val = _leaf(pname, w, conv1d)
+        sd[f"{mod}.{name}"] = torch.from_numpy(np.ascontiguousarray(val))
+    return sd
+
+
+def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ADMUNet params (nested dict of arrays) -> ADMUNet state dict; a
+    {"unet": ..., "out_cov": ...} tree -> ADMUNetV2 state dict. float32."""
+    if "unet" not in params:
+        return _unet_state_dict(params)
+    sd = {f"inner_model.{k}": v
+          for k, v in _unet_state_dict(params["unet"]).items()}
+    cov = params["out_cov"]
+    sd["out_cov.weight"] = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(cov["kernel"], np.float32).transpose(3, 2, 0, 1)))
+    sd["out_cov.bias"] = torch.from_numpy(np.asarray(cov["bias"], np.float32))
+    return sd
+
+
+def precast_inference(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Casts every parameter to `dtype` except GroupNorm32's, in place, for
+    inference with a low-precision torso (`kdip_tpu.utils.
+    precast_inference_params`): the norm parameters feed float32 statistics
+    and stay float32. Returns the model."""
+    for module in model.modules():
+        if isinstance(module, GroupNorm32):
+            continue
+        for name, p in module.named_parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return model
