@@ -24,8 +24,22 @@ each printing one JSON line:
    the device's busy share and its top kernels;
 5. slice, Convert: the V1 ADMUNet, Type-I guidance with the Convert
    covariance, the same sampler;
-6. the `kernels` line: per kernel, its launches in phase 3, its error, its
-   time against its plain version's and its bound, at the slice's shape.
+6. kernels_winograd: both entry points of the Winograd F(2,3) kernel
+   against its plain version in bf16, with and without the fused
+   prologue, at [1,128,256,256]->128, [1,1024,8,8]->512, a C and F that
+   are not multiples of 16, and B=2, and through autograd (dx, da, db);
+7. slice, Convert with the Winograd torso (`--winograd`): the V1 ADMUNet
+   built by `config.make_openai_model` from configs/test_ffhq.json with
+   winograd=True, the same guidance and sampler; the Winograd launch counts
+   are reset just before and read just after, and must be 65 plain + 55
+   fused per guided NFE;
+8. one guided NFE below Convert's threshold three ways on the same
+   weights: the kernels, their plain versions, and the direct cuDNN torso,
+   compared; the kernel run is traced for the device's busy share, its
+   time by kind and the Winograd kernels' device time;
+9. the `kernels` line: per kernel, its launches in its slice (phases 3 and
+   7), its error, its time against its plain version's, its bound and, for
+   the Winograd kernels, cuDNN's direct conv, at the slice's hottest shape.
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line. Any failed phase raises, so the script exits non-zero and prints no
@@ -35,16 +49,18 @@ result line; without a card, or without the package beside it, it exits 2.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and float32
-# rate outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth, the
+# float32 rate outside the tensor cores, and the dense bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 
 SIZE = 256          # FFHQ-256
 STEPS = 50          # SamplerConfig's default: Heun-50
@@ -55,9 +71,27 @@ INPAINTING = dict(name="inpainting", sigma_s=0.05,
 N_SAMPLES = 4
 DWT_TOL = 1e-6      # kernel vs plain: the same float32 roundings (phase 2)
 NFE_TOL = 1e-3      # kernel-DWT vs plain-DWT guided NFE (see phase 4)
-NFE_REPS = 5        # timed calls per NFE variant in phase 4
-# phase 4's device time by kind, from the kernel's name (first match wins)
+NFE_REPS = 5        # timed calls per NFE variant in phases 4 and 8
+# Winograd kernel vs its plain version (phase 6), per element:
+# |d| <= 2^-7 |plain| + 2^-14 max|plain|, and at least 99% bit-equal. Both
+# round the same values at the same places; only the float32 order of the
+# 16 products' sums over C differs (tensor cores against a float32 matmul),
+# so an output may round to its bf16 neighbour (one ulp, <= 2^-7 of it),
+# and where cancellation leaves an output tiny the float32 noise of its
+# terms decides (far below 2^-14 of the largest output).
+WINO_REL, WINO_ABS, WINO_EQUAL = 2 ** -7, 2 ** -14, 0.99
+# (B, C, F, H, W): the hottest FFHQ-256 shape, the deepest, C and F not
+# multiples of 16 (H, W not multiples of 16 either), B = 2
+WINO_SHAPES = ((1, 128, 128, 256, 256), (1, 1024, 512, 8, 8),
+               (1, 40, 24, 18, 22), (2, 64, 32, 32, 32))
+# phase 8 (see phase_nfe_winograd): one guided NFE below Convert's 0.2
+# threshold; kernels vs plain versions, vs the direct torso
+WINO_NFE_SIGMA = 0.1
+WINO_DRIFT_RATIO = 3.0   # the kernels' drift from float32 / the others'
+# phase 4's and 8's device time by kind, from the kernel's name (first match
+# wins: "winograd" before "conv", which would swallow it)
 KERNEL_KINDS = (("haar_dwt", ("haar_dwt2",)),
+                ("winograd", ("winograd_f23",)),
                 ("layout", ("nchwToNhwc", "nhwcToNchw")),
                 ("conv_gemm", ("xmma", "cutlass", "gemm", "conv", "sm90_")),
                 ("reduction", ("reduce_kernel", "reduce")),
@@ -180,19 +214,94 @@ def phase_kernels(dev):
           "round_trip_tol": 2 * DWT_TOL, "max_abs_err": errs})
 
 
-def build_slice(dev, v2: bool, seed: int):
+def wino_inputs(dev, B, C, F, H, W, seed):
+    """bf16 x [B, C, H, W] ~ N(0, 1), a weight [F, C, 3, 3] scaled to unit
+    output variance, and the prologue's float32 a ~ 1 + 0.3 N, b ~ 0.3 N."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, C, H, W, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(F, C, 3, 3, generator=g, device=dev)
+         / (9 * C) ** 0.5).to(torch.bfloat16)
+    a = 1 + 0.3 * torch.randn(B, C, generator=g, device=dev)
+    b = 0.3 * torch.randn(B, C, generator=g, device=dev)
+    return x, w, a, b
+
+
+def wino_compare(got, want, what, bit_equal=True):
+    """The WINO_* tolerance; returns the record of one comparison."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = int((err > WINO_REL * want.abs()
+               + WINO_ABS * want.abs().max()).sum())
+    equal = (got == want).float().mean().item()
+    if bad or (bit_equal and equal < WINO_EQUAL):
+        raise AssertionError(f"{what}: {bad} elements out of tolerance, "
+                             f"{equal:.5f} bit-equal")
+    return {"max_abs_err": err.max().item(), "bit_equal": equal}
+
+
+def phase_kernels_winograd(dev):
+    """Both entry points against the plain version on the card, bf16, and
+    the autograd of both ops (dx runs the kernel on the rotated weight; da,
+    db follow from it) against the plain version's autograd."""
+    import torch
+    from kdip_tpu_torch.ops import winograd as Wg
+    res = {}
+    for i, shape in enumerate(WINO_SHAPES):
+        x, w, a, b = wino_inputs(dev, *shape, seed=i)
+        v = Wg.kernel_transform(w)
+        key = "x".join(map(str, shape))
+        for tag, pro in (("plain", None), ("fused", (a, b))):
+            y = Wg.winograd_conv3x3_cuda(x, v, pro)
+            torch.cuda.synchronize()
+            res[f"{tag} {key}"] = wino_compare(
+                y, Wg.winograd_conv3x3_plain(x, v, pro), f"{tag} {key}")
+    x, w, a, b = wino_inputs(dev, *WINO_SHAPES[3], seed=9)
+    g = torch.Generator(device=dev).manual_seed(10)
+    B, _, F, H, W = WINO_SHAPES[3]
+    ct = torch.randn(B, F, H, W, generator=g, device=dev).to(x.dtype)
+    for tag in ("plain", "fused"):
+        grads = []
+        for conv in (None, Wg.winograd_conv3x3_plain):
+            xs, as_, bs = (t.clone().requires_grad_(True) for t in (x, a, b))
+            y = Wg.winograd_conv3x3(
+                xs, w, prologue=(as_, bs) if tag == "fused" else None,
+                conv=conv)
+            wrt = [xs, as_, bs] if tag == "fused" else [xs]
+            grads.append(torch.autograd.grad(y, wrt, grad_outputs=ct))
+        torch.cuda.synchronize()
+        for got, want, name in zip(*grads, ("dx", "da", "db")):
+            # da, db are float32 sums of dx's terms: no bit-equal share
+            res[f"autograd {tag} {name}"] = wino_compare(
+                got, want, f"autograd {tag} {name}", bit_equal=name == "dx")
+    emit({"phase": "kernels_winograd", "dtype": "bfloat16",
+          "tol": {"rel": WINO_REL, "abs_of_max": WINO_ABS,
+                  "min_bit_equal": WINO_EQUAL},
+          "shapes_BCFHW": WINO_SHAPES, "results": res})
+
+
+def build_slice(dev, v2: bool, seed: int, winograd: bool = False):
     """(model, tables, operator, measurement) of one configuration at full
-    width: ffhq_unet (+ the out_cov head for v2), weights from `seed`, bf16
+    width: ffhq_unet (+ the out_cov head for v2), or with winograd the
+    model the CLI builds (`config.make_openai_model` on
+    configs/test_ffhq.json, winograd=True), weights from `seed`, bf16
     torso with the norm parameters in float32."""
     import torch
-    from kdip_tpu_torch import diffusion, operators, weights
+    from kdip_tpu_torch import config, diffusion, operators, weights
     from kdip_tpu_torch.models import adm
-    model = adm.ffhq_unet(device=dev)
+    if winograd:
+        cfg = config.load_config(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "configs",
+            "test_ffhq.json"))
+        model, tables = config.make_openai_model(cfg["model"], winograd=True,
+                                                 device=dev)
+    else:
+        model = adm.ffhq_unet(device=dev)
+        tables = diffusion.make_diffusion(1000, "linear", device=dev)
     if v2:
         model = adm.ADMUNetV2(model)
     randomize_(model, seed)
     weights.precast_inference(model).eval().requires_grad_(False)
-    tables = diffusion.make_diffusion(1000, "linear", device=dev)
     op = operators.get_operator(
         seed=0, device=dev, **dict(INPAINTING, mask_opt=dict(
             INPAINTING["mask_opt"], image_size=SIZE)))
@@ -201,13 +310,27 @@ def build_slice(dev, v2: bool, seed: int):
     return model, tables, op, op.measure(x_true, generator=g), x_true
 
 
-def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int):
+def winograd_per_nfe(model):
+    """Winograd launches per guided NFE at B=1, from the model's blocks: the
+    forward runs the plain kernel in each down-block's in_conv and the fused
+    one in every other 3x3 conv of a ResBlock; the vjp runs the plain kernel
+    once per conv (dx). FFHQ-256 (30 blocks, 5 down): 65 plain + 55 fused."""
+    from kdip_tpu_torch.models.layers import ResBlock
+    blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+    down = sum(b.down for b in blocks)
+    return {"winograd_conv3x3": down + 2 * len(blocks),
+            "winograd_conv3x3_fused": 2 * len(blocks) - down}
+
+
+def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
+              winograd: bool = False):
     """Heun-50 with churn, n samples against one measurement; returns the
-    phase record (and the measurement pieces for phase 4)."""
+    phase record (and the measurement pieces for phases 4 and 8)."""
     import torch
     from kdip_tpu_torch import sampling_api
     from kdip_tpu_torch.ops import dwt as D
-    model, tables, op, meas, x_true = build_slice(dev, v2, seed)
+    from kdip_tpu_torch.ops import winograd as Wg
+    model, tables, op, meas, x_true = build_slice(dev, v2, seed, winograd)
     scfg = sampling_api.SamplerConfig(steps=STEPS)
     sampler = sampling_api.build_posterior_sampler(
         model, tables, op, gcfg, scfg, v2=v2, image_size=SIZE, device=dev)
@@ -215,11 +338,13 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     D.reset_launch_counts()
+    Wg.reset_launch_counts()
     t0 = time.perf_counter()
     out, info = sampler(meas, n=n, generator=g, return_info=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(D.launch_counts)
+    wino_launches = dict(Wg.launch_counts)
     nfe = n * (2 * scfg.steps - 1)
     amax = out.abs().max().item()
     rec = {"phase": name, "n": n, "steps": scfg.steps,
@@ -227,7 +352,8 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int):
            "ms_per_nfe": 1e3 * wall / nfe,
            "cg_max_residual": info["cg_max_residual"],
            "cg_total_iters": info["cg_total_iters"],
-           "dwt_launches": launches, "max_abs_out": amax,
+           "dwt_launches": launches, "winograd_launches": wino_launches,
+           "max_abs_out": amax,
            "finite": bool(torch.isfinite(out).all()),
            "mse_vs_truth": ((out - x_true) ** 2).mean().item(),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -237,6 +363,17 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int):
     # up to float32 rounding
     if amax > 1 + 1e-5:
         raise AssertionError(f"{name}: output outside [-1, 1]: {amax}")
+    if winograd:
+        # the per-sample loop calls the UNet once per sample and NFE
+        per_nfe = winograd_per_nfe(model)
+        rec["winograd_launches_per_nfe"] = {
+            k: v / nfe for k, v in wino_launches.items()}
+        want = {k: v * nfe for k, v in per_nfe.items()}
+        if wino_launches != want:
+            raise AssertionError(f"{name}: Winograd launches {wino_launches}"
+                                 f", predicted {want}")
+    elif sum(wino_launches.values()):
+        raise AssertionError(f"{name} launched the Winograd kernel")
     return rec, (model, tables, op, meas, x_true)
 
 
@@ -348,6 +485,191 @@ def profiled_kernel_ms(fn, name_part: str, reps: int = 50):
     return total / reps if total else None
 
 
+def phase_nfe_winograd(dev, gcfg, parts):
+    """One guided NFE at WINO_NFE_SIGMA (< Convert's threshold: a CG solve)
+    on the Winograd slice's weights, three ways: the kernels, their plain
+    versions (each conv's `conv_fn`; no launch may be counted), and the
+    direct cuDNN torso (winograd off), timed in turns; and a float32 copy
+    of the same (bf16-rounded) weights as the reference. Compared: the
+    UNet's raw output at the NFE's input and its vjp at a fixed cotangent,
+    the unconditional x0_mean and the variance that feeds the Convert
+    covariance, and hat_x0.
+
+    A bf16 torso of this depth carries any difference that flips one
+    rounding from layer to layer until it reaches its own rounding noise:
+    kernels and plain versions, which agree per conv on all but ~0.1% of
+    the outputs by one ulp (phase 6), give UNets about as far apart as the
+    Winograd and direct torsos are (on an H100 80GB HBM3: 4.4% and 7.1% of
+    the largest output, max-relative). So the torso is held
+    by its drift from float32 (norm-relative, output and vjp): the
+    kernels' at most WINO_DRIFT_RATIO times the plain versions' and the
+    direct torso's, the form of kdip_tpu's bf16 drift bound
+    (tests/test_winograd.py:61-71 allows 6 times per conv); and the CG
+    iterations of kernels and plain versions within 2. The max-relative
+    differences between the variants are reported; hat_x0 = x0_mean +
+    sigma^2 * vjp(mat) multiplies the vjp's noise where the Convert
+    variance of random weights is small."""
+    import copy
+
+    import torch
+    from kdip_tpu_torch import guidance as gd
+    from kdip_tpu_torch import precond
+    from kdip_tpu_torch.models.layers import Conv2d
+    from kdip_tpu_torch.ops import winograd as Wg
+    model, tables, op, meas, x_true = parts
+    sigma = WINO_NFE_SIGMA
+    uncond, var_fn = gd.make_openai_uncond(model, tables, gcfg)
+    den = gd.make_condition_denoiser(uncond, var_fn, op, meas, gcfg,
+                                     with_info=True)
+    convs = [m for m in model.modules() if isinstance(m, Conv2d)]
+    per_nfe = winograd_per_nfe(model)
+
+    def use(mode):
+        model.set_winograd(mode != "direct")
+        for m in convs:
+            m.conv_fn = Wg.winograd_conv3x3_plain if mode == "plain" else None
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = x_true + sigma * torch.randn(x_true.shape, generator=g, device=dev)
+    ct = torch.randn((1, 6, SIZE, SIZE), generator=g, device=dev)
+    x_in = x * float(np.float32(precond.eps_scalings(np.float32(sigma))[1]))
+    t_b = precond.sigma_to_t(tables.log_sigmas, torch.tensor(
+        sigma, device=dev)).floor().long().reshape(1)
+
+    def torso(m):
+        """The raw UNet output at the NFE's input, and its vjp at ct."""
+        xg = x_in.detach().requires_grad_(True)
+        y = m(xg, t_b)
+        vjp, = torch.autograd.grad(y, xg, grad_outputs=ct)
+        return {"unet_out": y.detach().float(), "unet_vjp": vjp.float()}
+
+    variants = ("kernel", "plain", "direct")
+    walls = {k: [] for k in variants}
+    res, outs = {}, {}
+    for rep in range(NFE_REPS + 1):
+        for k in variants:
+            use(k)
+            Wg.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[k] = den(x, sigma)
+            torch.cuda.synchronize()
+            if rep:
+                walls[k].append(1e3 * (time.perf_counter() - t0))
+            want = per_nfe if k == "kernel" else dict.fromkeys(per_nfe, 0)
+            if Wg.launch_counts != want:
+                raise AssertionError(f"{k} NFE: Winograd launches "
+                                     f"{Wg.launch_counts}, expected {want}")
+    for k in variants:
+        use(k)
+        with torch.no_grad():
+            x0m, aux = uncond(x, sigma)
+        outs[k] = {"x0_mean": x0m.float(), "variance": aux["variance"].float(),
+                   "hat_x0": res[k][0].float(), **torso(model)}
+    use("kernel")
+    ref = torso(copy.deepcopy(model).float())
+
+    def max_rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def norm_rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    cmp = {other: {q: max_rel(outs["kernel"][q], outs[other][q])
+                   for q in outs["kernel"]} for other in ("plain", "direct")}
+    drift = {k: {q: norm_rel(outs[k][q], ref[q]) for q in ref}
+             for k in variants}
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        den(x, sigma)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    kernels = device_events(prof)
+    busy_ms = sum(k[0] for k in kernels)
+    by_kind = {}
+    for ms, _, name in kernels:
+        kind = next((k for k, names in KERNEL_KINDS if any(
+            p in name for p in names)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    t_k = float(np.median(walls["kernel"]))
+    iters = {k: res[k][1]["cg_iters"] for k in variants}
+    rec = {"phase": "nfe_winograd", "sigma": sigma, "t": int(t_b),
+           "kernel_vs_max_rel": cmp, "norm_rel_vs_float32": drift,
+           "drift_ratio_tol": WINO_DRIFT_RATIO,
+           "cg_iters": iters,
+           "cg_resid": {k: res[k][1]["cg_resid"] for k in variants},
+           "median_wall_ms": {k: float(np.median(walls[k])) for k in variants},
+           "reps": NFE_REPS, "winograd_launches_per_nfe": per_nfe,
+           "profiled_wall_ms": 1e3 * t_prof,
+           "device_busy_ms": busy_ms if kernels else "not measured",
+           "device_ms_by_kind": by_kind,
+           "winograd_device_ms_per_nfe": by_kind.get("winograd", 0.0)
+           if kernels else "not measured",
+           "device_idle_share": (1 - busy_ms / t_k) if kernels
+           else "not measured",
+           "top_kernels_ms": [[round(k[0], 4), k[1], k[2][:80]]
+                              for k in kernels[:10]]}
+    emit(rec)
+    fails = [f"drift {q}: kernels {drift['kernel'][q]}, {k} {drift[k][q]}"
+             for q in ref for k in ("plain", "direct")
+             if not drift["kernel"][q] <= WINO_DRIFT_RATIO * drift[k][q]]
+    if abs(iters["kernel"] - iters["plain"]) > 2:
+        fails.append(f"CG iterations {iters}")
+    if fails:
+        raise AssertionError(f"nfe_winograd: {fails}")
+
+
+def wino_kernel_rows(dev, launches):
+    """The kernels line's Winograd rows, at the hottest shape of the slice
+    ([1,128,256,256] -> 128 bf16, B=1 under the per-sample loop). The bound:
+    2*16*(H/2)*(W/2)*C*F tensor-core flops at the dense bf16 rate, against
+    x + y + V (+ a, b) bytes at the HBM rate. The library yardstick is
+    cuDNN's direct conv (F.conv2d, bf16), which computes the plain kernel's
+    function; no single call computes the fused one (conv2d of
+    silu(x*a + b)), so its row gives conv2d's time alone."""
+    import torch
+    import torch.nn.functional as F
+    from kdip_tpu_torch.ops import winograd as Wg
+    B, C, Fo, H, W = WINO_SHAPES[0]
+    x, w, a, b = wino_inputs(dev, B, C, Fo, H, W, seed=3)
+    v = Wg.kernel_transform(w)
+    flops = 2 * 16 * (H // 2) * (W // 2) * C * Fo
+    lib_ms = cuda_time_ms(lambda: F.conv2d(x, w, padding=1))
+    rows = []
+    for name, pro in (("winograd_conv3x3", None),
+                      ("winograd_conv3x3_fused", (a, b))):
+        nbytes = 2 * (x.numel() + B * Fo * H * W + v.numel()) + (
+            2 * 4 * B * C if pro else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / BF16_TENSOR_FLOP_PER_S
+        err = (Wg.winograd_conv3x3_cuda(x, v, pro).float()
+               - Wg.winograd_conv3x3_plain(x, v, pro).float()).abs().max()
+
+        def kern():
+            return Wg.winograd_conv3x3_cuda(x, v, pro)
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(lambda: Wg.winograd_conv3x3_plain(x, v, pro),
+                                reps=20, warmup=3)
+        ms2 = cuda_time_ms(kern)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "kdip_tpu_torch/csrc/winograd_f23.cu",
+            "replaces": "kdip_tpu/ops/experimental/winograd_pallas.py:60",
+            "launches": launches[name], "max_abs_err": err.item(),
+            "ms": min(ms, ms2), "ms_runs": [ms, ms2],
+            "device_ms": profiled_kernel_ms(kern, "winograd_f23"),
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library_call": "torch.nn.functional.conv2d, bf16 (cuDNN)" + (
+                "; no single call fuses silu(x*a+b): conv2d alone"
+                if pro else ""),
+            "shape_BCFHW": [B, C, Fo, H, W]})
+    return rows
+
+
 def kernel_rows(dev, launches):
     """The kernels line: each kernel at the slice's shape [1, 3, 256, 256]
     float32, level 3 (one sample under the per-sample loop)."""
@@ -415,11 +737,25 @@ def main() -> int:
     del parts
     torch.cuda.empty_cache()
 
-    rec, _ = run_slice("slice_convert", dev, False,
-                       gd.GuidanceConfig("I", "convert"), seed=1, n=N_SAMPLES)
+    convert_cfg = gd.GuidanceConfig("I", "convert")
+    rec, _ = run_slice("slice_convert", dev, False, convert_cfg, seed=1,
+                       n=N_SAMPLES)
     emit(rec)
 
-    emit({"kernels": kernel_rows(dev, launches)})
+    phase_kernels_winograd(dev)
+    rec, parts = run_slice("slice_convert_winograd", dev, False, convert_cfg,
+                           seed=2, n=N_SAMPLES, winograd=True)
+    emit(rec)
+    wino_launches = rec["winograd_launches"]
+    if not all(v > 0 for v in wino_launches.values()):
+        raise AssertionError(f"the Winograd run launched no kernel: "
+                             f"{wino_launches}")
+    phase_nfe_winograd(dev, convert_cfg, parts)
+    del parts
+    torch.cuda.empty_cache()
+
+    emit({"kernels": kernel_rows(dev, launches)
+          + wino_kernel_rows(dev, wino_launches)})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,7 @@ CUDA kernels live under `csrc/` and are built with nvcc at first use
 (`ops/_build.py`).
 """
 
-from . import (diffusion, guidance, operators, precond, samplers,  # noqa: F401
-               sampling_api, schedules, weights)
+from . import (config, diffusion, guidance, operators, precond,  # noqa: F401
+               samplers, sampling_api, schedules, weights)
 from .models import adm, layers  # noqa: F401
-from .ops import dwt, transforms  # noqa: F401
+from .ops import dwt, transforms, winograd  # noqa: F401

@@ -6,6 +6,14 @@ Topology and module names follow guided_diffusion/unet.py:398-668
 unchanged. NCHW layout. The torso runs in the dtype of its weights
 (`weights.precast_inference` makes a bfloat16 torso); its input and output
 stay in the caller's dtype.
+
+`winograd=True` (adm.py:61-91) sends the ResBlocks' 3x3 convs through the
+Winograd F(2,3) kernel (`ops.winograd`) in a bfloat16 or float16 torso;
+the state dict does not change. The decoder concatenates each skip onto h
+(`torch.cat`) where `kdip_tpu`'s low-precision torso passes the pair
+split (adm.py:156-167, 188-196): the same maths, but for one bf16 rounding
+of the sum in the projecting 1x1 skip conv, which `kdip_tpu` takes per
+half.
 """
 
 from __future__ import annotations
@@ -15,7 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from .layers import (AttentionBlock, GroupNorm32, ResBlock,
+from .layers import (AttentionBlock, Conv2d, GroupNorm32, ResBlock,
                      TimestepEmbedSequential, conv_nd, timestep_embedding)
 
 
@@ -32,7 +40,7 @@ class ADMUNet(nn.Module):
                  channel_mult: Tuple[int, ...] = (1, 1, 2, 2, 4, 4),
                  num_heads: int = 4, num_head_channels: int = 64,
                  use_new_attention_order: bool = False,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", winograd: bool = False):
         super().__init__()
         self.image_size = image_size
         self.model_channels = mc = model_channels
@@ -92,7 +100,18 @@ class ADMUNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  conv_nd(2, ch, out_channels, 3, dtype))
         self.feature_channels = ch
+        self.set_winograd(winograd)
         self.to(device)
+
+    def set_winograd(self, on: bool) -> None:
+        """Routes the ResBlocks' 3x3 convs through the Winograd kernel (or
+        back to the direct conv). Takes effect only in a bfloat16 or
+        float16 torso: the gate reads the torso's dtype at forward time,
+        since a model is built in float32 and pre-cast afterwards."""
+        self.winograd = on
+        for m in self.modules():
+            if isinstance(m, (ResBlock, Conv2d)):
+                m.winograd = on
 
     @property
     def dtype(self) -> torch.dtype:
@@ -148,7 +167,47 @@ class ADMUNetV2(nn.Module):
 
 
 def ffhq_unet(dtype=torch.float32, device="cuda", **kw) -> ADMUNet:
-    """FFHQ-256 config (ref: configs/test_ffhq.json:13-17)."""
+    """FFHQ-256 config (ref: configs/test_ffhq.json:13-17); `winograd=`
+    passes through."""
     return ADMUNet(image_size=256, model_channels=128, num_res_blocks=1,
                    attention_resolutions=(16,), channel_mult=(1, 1, 2, 2, 4, 4),
                    num_heads=4, num_head_channels=64, out_channels=6, dtype=dtype, device=device, **kw)
+
+
+def create_unet(image_size: int = 256, num_channels: int = 128,
+                num_res_blocks: int = 1, channel_mult: str = "",
+                learn_sigma: bool = True, class_cond: bool = False,
+                attention_resolutions: str = "16", num_heads: int = 4,
+                num_head_channels: int = 64, num_heads_upsample: int = -1,
+                use_scale_shift_norm: bool = True, dropout: float = 0.0,
+                resblock_updown: bool = True,
+                use_new_attention_order: bool = False, dtype=torch.float32,
+                device="cuda", winograd: bool = False) -> ADMUNet:
+    """Flag-compatible factory (ref: guided_diffusion/script_util.py:130-184;
+    `kdip_tpu` adm.py:468-500). `dropout` is accepted and unused: the port
+    runs inference only. Flags whose modules are not ported raise."""
+    unported = {"class_cond": class_cond, "use_scale_shift_norm=False":
+                not use_scale_shift_norm, "resblock_updown=False":
+                not resblock_updown, "num_heads_upsample": num_heads_upsample
+                not in (-1, num_heads)}
+    for flag, on in unported.items():
+        if on:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: a later slice of the PyTorch "
+                f"port (ROADMAP queue 1, item 12)")
+    if channel_mult == "":
+        mult: Tuple[float, ...] = {
+            512: (0.5, 1, 1, 2, 2, 4, 4), 256: (1, 1, 2, 2, 4, 4),
+            128: (1, 1, 2, 3, 4), 64: (1, 2, 3, 4)}[image_size]
+    else:
+        mult = tuple(int(m) for m in channel_mult.split(","))
+    attention_ds = tuple(image_size // int(r)
+                         for r in attention_resolutions.split(","))
+    return ADMUNet(image_size=image_size, in_channels=3,
+                   model_channels=num_channels,
+                   out_channels=6 if learn_sigma else 3,
+                   num_res_blocks=num_res_blocks,
+                   attention_resolutions=attention_ds, channel_mult=mult,
+                   num_heads=num_heads, num_head_channels=num_head_channels,
+                   use_new_attention_order=use_new_attention_order,
+                   dtype=dtype, device=device, winograd=winograd)

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import winograd
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
@@ -42,7 +44,11 @@ class GroupNorm32(nn.GroupNorm):
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__(num_groups, channels, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine_terms(self, x: torch.Tensor):
+        """The per-sample, per-channel (a, b), each [B, C] float32, with
+        gn(x) == x*a + b before the rounding (`kdip_tpu` _FusedGroupNorm's
+        return_affine, layers.py:53-97): what the Winograd kernel's fused
+        prologue takes."""
         B, C = x.shape[:2]
         G = self.num_groups
         x32 = x.to(torch.float32).reshape(B, G, -1)
@@ -51,9 +57,13 @@ class GroupNorm32(nn.GroupNorm):
         rstd = torch.rsqrt((m2 - m.square()).clamp(min=0.0) + self.eps)
         a = rstd[:, :, None] * self.weight.reshape(G, C // G)[None]
         b = self.bias.reshape(G, C // G)[None] - m[:, :, None] * a
-        a = a.reshape(B, C, *([1] * (x.ndim - 2)))
-        b = b.reshape(B, C, *([1] * (x.ndim - 2)))
-        return (x.to(torch.float32) * a + b).to(x.dtype)
+        return a.reshape(B, C), b.reshape(B, C)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.affine_terms(x)
+        shape = a.shape + (1,) * (x.ndim - 2)
+        return (x.to(torch.float32) * a.reshape(shape)
+                + b.reshape(shape)).to(x.dtype)
 
 
 def conv_nd(dims: int, cin: int, cout: int, kernel_size: int, dtype,
@@ -61,6 +71,53 @@ def conv_nd(dims: int, cin: int, cout: int, kernel_size: int, dtype,
     cls = nn.Conv2d if dims == 2 else nn.Conv1d
     return cls(cin, cout, kernel_size, stride=stride,
                padding=kernel_size // 2, dtype=dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """A same-padded nn.Conv2d (the same `weight` and `bias`) whose forward
+    takes an optional prologue (a, b), [B, Cin] float32: it convolves
+    silu(x*a + b) (`kdip_tpu` SplitSkipConv, layers.py:126-207).
+
+    With `winograd` set, an eligible call (3x3, stride 1, even H and W, a
+    bfloat16 or float16 weight; layers.py:171-173) runs
+    `ops.winograd.winograd_conv3x3`, the prologue fused into its input
+    load. Any other call takes the direct conv and applies the prologue
+    unfused. The weight's two Winograd transforms are cached, keyed on the
+    weight's storage and version counter. `conv_fn`, where set, replaces
+    the kernel's device dispatch (a comparison's plain version)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, dtype,
+                 winograd: bool = False):
+        super().__init__(cin, cout, kernel_size, padding=kernel_size // 2,
+                         dtype=dtype)
+        self.winograd = winograd
+        self.conv_fn = None
+        self._transforms = (None, None)
+
+    def _eligible(self, x: torch.Tensor) -> bool:
+        return (self.winograd and self.kernel_size == (3, 3)
+                and self.stride == (1, 1)
+                and self.weight.dtype in (torch.bfloat16, torch.float16)
+                and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0)
+
+    def _winograd_transforms(self):
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._transforms[0] != key:
+            with torch.no_grad():
+                self._transforms = (key, (
+                    winograd.kernel_transform(w),
+                    winograd.kernel_transform(winograd.rotated_weight(w))))
+        return self._transforms[1]
+
+    def forward(self, x: torch.Tensor, prologue=None) -> torch.Tensor:
+        if self._eligible(x):
+            return winograd.winograd_conv3x3(
+                x, self.weight, self.bias, prologue,
+                transforms=self._winograd_transforms(), conv=self.conv_fn)
+        if prologue is not None:
+            x = winograd.affine_silu(x.to(self.weight.dtype), *prologue)
+        return super().forward(x)
 
 
 class TimestepEmbedSequential(nn.Sequential):
@@ -76,22 +133,35 @@ class TimestepEmbedSequential(nn.Sequential):
 class ResBlock(nn.Module):
     """ADM residual block with scale-shift (FiLM) timestep-embedding
     conditioning, which every ADM config of this repo uses
-    (ref: guided_diffusion/unet.py:143-257, use_scale_shift_norm=True)."""
+    (ref: guided_diffusion/unet.py:143-257, use_scale_shift_norm=True).
+
+    `winograd` (`kdip_tpu` layers.py:263-381) takes effect in a bfloat16 or
+    float16 torso, checked at forward time: its two 3x3 convs run the
+    Winograd kernel with GroupNorm + SiLU fused into their input load.
+    in_conv fuses in every block that does not downsample (an up-block
+    takes the affine from x before the nearest upsample, which commutes
+    with the pointwise prologue); a down-block runs the plain kernel on the
+    pooled, activated h. out_conv fuses always, the FiLM scale and shift
+    absorbed into the affine: gn(h)*(1+s) + t = h*(a*(1+s)) + (b*(1+s) + t).
+    A float32 torso keeps the direct path whatever the flag."""
 
     def __init__(self, channels: int, emb_channels: int, dtype,
                  out_channels: Optional[int] = None,
-                 up: bool = False, down: bool = False):
+                 up: bool = False, down: bool = False,
+                 winograd: bool = False):
         super().__init__()
         out_ch = out_channels or channels
         self.up, self.down = up, down
-        self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
-                                       conv_nd(2, channels, out_ch, 3, dtype))
+        self.winograd = winograd
+        self.in_layers = nn.Sequential(
+            GroupNorm32(channels), nn.SiLU(),
+            Conv2d(channels, out_ch, 3, dtype, winograd))
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_channels, 2 * out_ch, dtype=dtype))
         # index 2 is the reference's Dropout: identity at inference
-        self.out_layers = nn.Sequential(GroupNorm32(out_ch), nn.SiLU(),
-                                        nn.Identity(),
-                                        conv_nd(2, out_ch, out_ch, 3, dtype))
+        self.out_layers = nn.Sequential(
+            GroupNorm32(out_ch), nn.SiLU(), nn.Identity(),
+            Conv2d(out_ch, out_ch, 3, dtype, winograd))
         if out_ch == channels:
             self.skip_connection = nn.Identity()
         else:
@@ -106,14 +176,34 @@ class ResBlock(nn.Module):
 
     def forward(self, x, emb):
         norm, act, conv = self.in_layers
+        out_norm, out_act, _, out_conv = self.out_layers
+        if self.winograd and conv.weight.dtype in (torch.bfloat16,
+                                                   torch.float16):
+            return self._forward_fused(x, emb)
         h = act(norm(x))
         if self.up or self.down:
             h, x = self._resample(h), self._resample(x)
         h = conv(h)
         emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
-        out_norm, out_act, _, out_conv = self.out_layers
         scale, shift = emb_out.chunk(2, dim=1)
         h = out_conv(out_act(out_norm(h) * (1 + scale) + shift))
+        return self.skip_connection(x) + h
+
+    def _forward_fused(self, x, emb):
+        norm, act, conv = self.in_layers
+        out_norm, _, _, out_conv = self.out_layers
+        if self.down:
+            h = self._resample(act(norm(x)))
+            x = self._resample(x)
+            h = conv(h)
+        else:
+            aff = norm.affine_terms(x)
+            x = self._resample(x)
+            h = conv(x, prologue=aff)
+        emb_out = self.emb_layers(emb).to(h.dtype)
+        s, t = (v.to(torch.float32) for v in emb_out.chunk(2, dim=1))
+        a, b = out_norm.affine_terms(h)
+        h = out_conv(h, prologue=(a * (1 + s), b * (1 + s) + t))
         return self.skip_connection(x) + h
 
 
