@@ -27,7 +27,8 @@ each printing one JSON line:
 6. kernels_winograd: both entry points of the Winograd F(2,3) kernel
    against its plain version in bf16, with and without the fused
    prologue, at [1,128,256,256]->128, [1,1024,8,8]->512, a C and F that
-   are not multiples of 16, and B=2, and through autograd (dx, da, db);
+   are not multiples of 16, B=2, and shapes that reach every launch
+   configuration, and through autograd (dx, da, db);
 7. slice, Convert with the Winograd torso (`--winograd`): the V1 ADMUNet
    built by `config.make_openai_model` from configs/test_ffhq.json with
    winograd=True, the same guidance and sampler; the Winograd launch counts
@@ -37,9 +38,15 @@ each printing one JSON line:
    weights: the kernels, their plain versions, and the direct cuDNN torso,
    compared; the kernel run is traced for the device's busy share, its
    time by kind and the Winograd kernels' device time;
-9. the `kernels` line: per kernel, its launches in its slice (phases 3 and
-   7), its error, its time against its plain version's, its bound and, for
-   the Winograd kernels, cuDNN's direct conv, at the slice's hottest shape.
+9. winograd_shapes: every distinct Winograd launch of one guided NFE
+   (the UNet forward and its vjp, recorded from the model as it runs), at
+   its own shape: the kernel against its plain version, its device time
+   beside cuDNN's direct conv (one torch.profiler trace for all shapes)
+   and the bound; then a line that sums them per level (H) and per NFE;
+10. the `kernels` line: per kernel, its launches in its slice (phases 3
+   and 7), its error, its time against its plain version's, its bound and,
+   for the Winograd kernels, cuDNN's direct conv, at the slice's hottest
+   shape.
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line. Any failed phase raises, so the script exits non-zero and prints no
@@ -81,13 +88,21 @@ NFE_REPS = 5        # timed calls per NFE variant in phases 4 and 8
 # terms decides (far below 2^-14 of the largest output).
 WINO_REL, WINO_ABS, WINO_EQUAL = 2 ** -7, 2 ** -14, 0.99
 # (B, C, F, H, W): the hottest FFHQ-256 shape, the deepest, C and F not
-# multiples of 16 (H, W not multiples of 16 either), B = 2
+# multiples of 16 (H, W not multiples of 16 either), B = 2; then shapes
+# that, with those, reach every launch configuration of
+# ops.winograd.launch_config (tests/test_torch_winograd_launch.py)
 WINO_SHAPES = ((1, 128, 128, 256, 256), (1, 1024, 512, 8, 8),
-               (1, 40, 24, 18, 22), (2, 64, 32, 32, 32))
+               (1, 40, 24, 18, 22), (2, 64, 32, 32, 32),
+               (1, 64, 64, 256, 256), (1, 128, 128, 128, 128),
+               (1, 200, 60, 64, 64), (1, 768, 256, 32, 32),
+               (1, 256, 256, 16, 16), (2, 32, 16, 8, 8), (2, 48, 40, 8, 8),
+               (4, 256, 64, 8, 8))
 # phase 8 (see phase_nfe_winograd): one guided NFE below Convert's 0.2
 # threshold; kernels vs plain versions, vs the direct torso
 WINO_NFE_SIGMA = 0.1
 WINO_DRIFT_RATIO = 3.0   # the kernels' drift from float32 / the others'
+WINO_SHAPE_REPS = 50     # timed calls per launch shape in phase 9
+LEAD_IN_KERNELS = 200    # run first in every trace (trace_device_events)
 # phase 4's and 8's device time by kind, from the kernel's name (first match
 # wins: "winograd" before "conv", which would swallow it)
 KERNEL_KINDS = (("haar_dwt", ("haar_dwt2",)),
@@ -277,7 +292,10 @@ def phase_kernels_winograd(dev):
     emit({"phase": "kernels_winograd", "dtype": "bfloat16",
           "tol": {"rel": WINO_REL, "abs_of_max": WINO_ABS,
                   "min_bit_equal": WINO_EQUAL},
-          "shapes_BCFHW": WINO_SHAPES, "results": res})
+          "shapes_BCFHW": WINO_SHAPES,
+          "launch_configs": [Wg.launch_config(*sh)._asdict()
+                             for sh in WINO_SHAPES],
+          "results": res})
 
 
 def build_slice(dev, v2: bool, seed: int, winograd: bool = False):
@@ -421,14 +439,15 @@ def phase_nfe_compare(dev, gcfg, parts):
     t_k, t_p, t_hi = (float(np.median(walls[k])) for k in variants)
     diff = (out_k - out_p).abs().max().item()
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls_prof = []
+
+    def traced_nfe():
         t0 = time.perf_counter()
         den_k(x, sigma)
         torch.cuda.synchronize()
-        t_prof = time.perf_counter() - t0
-    kernels = device_events(prof)
+        walls_prof.append(time.perf_counter() - t0)
+    kernels = device_events_by_name(trace_device_events(traced_nfe))
+    t_prof = walls_prof[0]
     busy_ms = sum(k[0] for k in kernels)
     by_kind = {}
     for ms, _, name in kernels:
@@ -456,33 +475,83 @@ def phase_nfe_compare(dev, gcfg, parts):
                              f"iterations {rec['cg_iters']}")
 
 
-def device_events(prof):
-    """[(ms, count, name)] of the device's own events in a torch.profiler
-    trace (kernels, copies, sets), longest first. The operators' rows of
-    key_averages() carry their kernels' device time too, so only rows of
-    the device type are summed."""
+def trace_device_events(work):
+    """The device's own events (kernels, copies, sets) of work(), in the
+    order they ran, from one torch.profiler (CUPTI) trace; None where the
+    trace lost them. On the H100 a trace that follows a long one can lose
+    the records of its first kernels (1 to 10 seen), so LEAD_IN_KERNELS
+    small kernels run first, then a spin kernel (torch.cuda._sleep) that
+    marks where work() begins."""
+    import torch
     from torch.autograd import DeviceType
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    return sorted(rows, reverse=True)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(LEAD_IN_KERNELS):
+            lead.add_(1)
+        torch.cuda._sleep(1000)
+        work()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [j for j, e in enumerate(events) if "spin_kernel" in e.name]
+    return events[marks[-1] + 1:] if marks else None
+
+
+def device_events_by_name(events):
+    """[(ms, count, name)] of a trace's device events, longest first; []
+    for a lost trace."""
+    rows = {}
+    for e in events or ():
+        ms, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return sorted(((ms, n, name) for name, (ms, n) in rows.items()),
+                  reverse=True)
 
 
 def profiled_kernel_ms(fn, name_part: str, reps: int = 50):
-    """Mean device time of the kernels whose name holds `name_part` over
-    `reps` calls of fn(), from torch.profiler (CUPTI); None where the trace
-    shows no device time."""
+    """Mean device time of the kernel whose name holds `name_part` over
+    `reps` calls of fn(), from one torch.profiler (CUPTI) trace; None where
+    the trace shows none."""
+    return profiled_cases_ms([fn], name_part, reps)[0][0]
+
+
+def profiled_cases_ms(fns, name_part: str, reps: int):
+    """[(mean device time of the kernel whose name holds `name_part`, of
+    the device events that follow it in the same call)] per call of each
+    fn in `fns`, all from one torch.profiler (CUPTI) trace. Each call of
+    a fn must launch one such kernel before its other device work, on one
+    stream: each fn is called 1 + `reps` times (the first warms up), and
+    the device's events (`trace_device_events`), in the order they ran,
+    are cut at each `name_part` kernel, so no host timestamp is needed.
+    (None, None) for every fn where the trace was lost; a trace that holds
+    some of the kernels but not all of them fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ms for ms, _, name in device_events(prof) if name_part in name)
-    return total / reps if total else None
+
+    def work():
+        for fn in fns:
+            for _ in range(1 + reps):
+                fn()
+            torch.cuda.synchronize()
+    events = trace_device_events(work)
+    if events is None:
+        return [(None, None)] * len(fns)
+    marks = [j for j, e in enumerate(events) if name_part in e.name]
+    if len(marks) != len(fns) * (1 + reps):
+        raise AssertionError(f"the trace holds {len(marks)} {name_part} "
+                             f"kernels of {len(fns) * (1 + reps)} launched")
+    marks.append(len(events))
+    out = []
+    for i in range(len(fns)):
+        parts = [0.0, 0.0]
+        for k in range(i * (1 + reps) + 1, (i + 1) * (1 + reps)):
+            parts[0] += events[marks[k]].time_range.elapsed_us() / 1e3
+            parts[1] += sum(e.time_range.elapsed_us() for e in
+                            events[marks[k] + 1:marks[k + 1]]) / 1e3
+        out.append(tuple(t / reps if t else None for t in parts))
+    return out
 
 
 def phase_nfe_winograd(dev, gcfg, parts):
@@ -579,14 +648,15 @@ def phase_nfe_winograd(dev, gcfg, parts):
     drift = {k: {q: norm_rel(outs[k][q], ref[q]) for q in ref}
              for k in variants}
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls_prof = []
+
+    def traced_nfe():
         t0 = time.perf_counter()
         den(x, sigma)
         torch.cuda.synchronize()
-        t_prof = time.perf_counter() - t0
-    kernels = device_events(prof)
+        walls_prof.append(time.perf_counter() - t0)
+    kernels = device_events_by_name(trace_device_events(traced_nfe))
+    t_prof = walls_prof[0]
     busy_ms = sum(k[0] for k in kernels)
     by_kind = {}
     for ms, _, name in kernels:
@@ -619,6 +689,116 @@ def phase_nfe_winograd(dev, gcfg, parts):
         fails.append(f"CG iterations {iters}")
     if fails:
         raise AssertionError(f"nfe_winograd: {fails}")
+
+
+def winograd_launch_shapes(model, dev):
+    """{(entry point, B, C, F, H, W): launches} of one UNet forward and its
+    vjp at B = 1, as a guided NFE runs them under the per-sample loop,
+    recorded from the model as it runs: every 3x3 conv's `conv_fn` becomes
+    a recorder, so the forward and the vjp's dx are both seen. On a CUDA
+    device the recorder launches the kernel; on the meta device (the CPU
+    test of the launch choice) it only makes the output. Their sum must be
+    winograd_per_nfe's count."""
+    import torch
+    from kdip_tpu_torch.models.layers import Conv2d
+    from kdip_tpu_torch.ops import winograd as Wg
+    cases = {}
+
+    def record(x, v, prologue=None):
+        entry = ("winograd_conv3x3" if prologue is None
+                 else "winograd_conv3x3_fused")
+        key = (entry, x.shape[0], x.shape[1], v.shape[2], *x.shape[2:])
+        cases[key] = cases.get(key, 0) + 1
+        if x.device.type == "meta":
+            return x.new_empty(x.shape[0], v.shape[2], *x.shape[2:])
+        return Wg.winograd_conv3x3_cuda(x, v, prologue)
+    convs = [m for m in model.modules() if isinstance(m, Conv2d)]
+    g = torch.Generator(device=dev).manual_seed(8) if dev.type != "meta" \
+        else None
+    x = torch.randn(1, 3, SIZE, SIZE, generator=g, device=dev,
+                    requires_grad=True)
+    t = torch.full((1,), 20, dtype=torch.long, device=dev)
+    for m in convs:
+        m.conv_fn = record
+    try:
+        y = model(x, t)
+        torch.autograd.grad(y, x, grad_outputs=torch.ones_like(y))
+    finally:
+        for m in convs:
+            m.conv_fn = None
+    per_nfe = winograd_per_nfe(model)
+    got = {k: sum(n for c, n in cases.items() if c[0] == k) for k in per_nfe}
+    if got != per_nfe:
+        raise AssertionError(f"recorded launches {got}, expected {per_nfe}")
+    return cases
+
+
+def phase_winograd_shapes(dev, cases):
+    """Each distinct Winograd launch of the NFE (`winograd_launch_shapes`)
+    at its own shape, bf16: the kernel against its plain version (the
+    WINO_* tolerance); then, in one torch.profiler trace for all shapes,
+    WINO_SHAPE_REPS calls a shape of the kernel followed by F.conv2d on the
+    same x and weight (cuDNN; all of its kernels, layout copies included):
+    their device times beside the bound. One line per case, then one line that
+    sums launches x time per level (H) and over the NFE."""
+    import torch
+    import torch.nn.functional as F
+    from kdip_tpu_torch.ops import winograd as Wg
+    order = sorted(cases.items(), key=lambda kv: (-kv[0][4], kv[0]))
+
+    def inputs(i, entry, B, C, Fo, H, W):
+        x, w, a, b = wino_inputs(dev, B, C, Fo, H, W, seed=100 + i)
+        pro = (a, b) if entry == "winograd_conv3x3_fused" else None
+        return x, w, Wg.kernel_transform(w), pro
+
+    cmps = []
+    for i, (case, _) in enumerate(order):
+        x, _, v, pro = inputs(i, *case)
+        y = Wg.winograd_conv3x3_cuda(x, v, pro)
+        torch.cuda.synchronize()
+        cmps.append(wino_compare(y, Wg.winograd_conv3x3_plain(x, v, pro),
+                                 "{} {}x{}x{}x{}x{}".format(*case)))
+        del x, v, pro, y
+
+    def both(i, case):
+        x, w, v, pro = inputs(i, *case)
+
+        def fn():  # the kernel's events, and cuDNN's (the rest)
+            Wg.winograd_conv3x3_cuda(x, v, pro)
+            F.conv2d(x, w, padding=1)
+        return fn
+    times = profiled_cases_ms([both(i, case) for i, (case, _) in
+                               enumerate(order)], "winograd_f23",
+                              WINO_SHAPE_REPS)
+    levels = {}
+    for ((entry, B, C, Fo, H, W), n), cmp, (ms, conv_ms) in zip(
+            order, cmps, times):
+        if ms is None or conv_ms is None:
+            raise AssertionError(f"{entry} {B}x{C}x{Fo}x{H}x{W}: the trace "
+                                 f"shows no device time")
+        v_numel = 16 * C * Fo
+        flops = 2 * 16 * B * (H // 2) * (W // 2) * C * Fo
+        nbytes = 2 * (B * C * H * W + B * Fo * H * W + v_numel) + (
+            2 * 4 * B * C if entry == "winograd_conv3x3_fused" else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / BF16_TENSOR_FLOP_PER_S
+        bound = 1e3 * max(t_bytes, t_ops)
+        emit({"phase": "winograd_shapes", "entry": entry,
+              "shape_BCFHW": [B, C, Fo, H, W], "launches_per_nfe": n,
+              "launch_config": Wg.launch_config(B, C, Fo, H, W)._asdict(),
+              "device_ms": ms, "conv2d_device_ms": conv_ms, "bound_ms": bound,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              **cmp})
+        lv = levels.setdefault(H, dict.fromkeys(
+            ("launches", "device_ms", "conv2d_device_ms", "bound_ms"), 0.0))
+        lv["launches"] += n
+        lv["device_ms"] += n * ms
+        lv["conv2d_device_ms"] += n * conv_ms
+        lv["bound_ms"] += n * bound
+    total = {k: sum(lv[k] for lv in levels.values()) for k in (
+        "launches", "device_ms", "conv2d_device_ms", "bound_ms")}
+    emit({"phase": "winograd_levels", "cases": len(cases),
+          "per_nfe_by_H": levels, "per_nfe": total})
 
 
 def wino_kernel_rows(dev, launches):
@@ -751,6 +931,7 @@ def main() -> int:
         raise AssertionError(f"the Winograd run launched no kernel: "
                              f"{wino_launches}")
     phase_nfe_winograd(dev, convert_cfg, parts)
+    phase_winograd_shapes(dev, winograd_launch_shapes(parts[0], dev))
     del parts
     torch.cuda.empty_cache()
 

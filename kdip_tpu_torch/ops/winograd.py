@@ -24,7 +24,8 @@ after the prologue (silu(b) != 0).
 One difference from `kdip_tpu`: its `_forward` cuts C and F into chunks of
 at most 128 (the TPU's VMEM and 128x128 matrix unit) and sums the chunks'
 outputs in the torso dtype; here the whole of C accumulates in float32 and
-rounds once.
+rounds once (tests/test_torch_winograd_ops.py: test_bf16_chunked_sum_departure
+records the difference).
 
 A CUDA tensor goes to the kernel, or the call raises; a CPU tensor goes to
 the plain version.
@@ -33,7 +34,7 @@ the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -139,15 +140,84 @@ def winograd_conv3x3_plain(x: torch.Tensor, v: torch.Tensor,
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
+# The kernel's two tilings, (TH, TW, FB, US) of TilingL and TilingT in
+# csrc/winograd_f23.cu: a CTA owns TH x TW output tiles, FB output channels
+# at a time, and holds the input transform of US input channels. _kernels()
+# holds this table to the library's.
+TILINGS = ((8, 8, 32, 64), (4, 4, 64, 64))
+MIN_CTAS = 64      # CTAs a launch aims at (see launch_config)
+MAX_CLUSTER = 8    # the portable thread-block cluster size: the C split
+
+
+class LaunchConfig(NamedTuple):
+    """What the kernel is launched with: the grid is csplit * fgroups CTAs
+    along x (a cluster of csplit along C), the tile blocks along y and the
+    samples along z."""
+    tiling: int   # index into TILINGS
+    csplit: int   # CTAs along C, one cluster
+    cs: int       # input channels of a CTA's slice, a multiple of 16
+    fgroups: int  # groups of F blocks, none empty
+    fper: int     # F blocks of FB channels a group
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_config(B: int, C: int, F: int, H: int, W: int) -> LaunchConfig:
+    """The launch of a conv of x [B, C, H, W] into F channels.
+
+    The tiling: 8x8 tiles x 32 output channels wherever the image has 8x8
+    tiles, else 4x4 tiles x 64. The C split is the least that lets U hold
+    a CTA's slice of C whole. Then, until the launch has MIN_CTAS CTAs,
+    more CTAs along C while each slice keeps two chunks of 16 channels,
+    then along F, then along C down to one chunk. Where U cannot hold a
+    slice it is rebuilt for every F block, so each CTA takes one F block.
+    Either tiling keeps one CTA on an SM, so 64 to 132 CTAs run in one
+    wave, and a CTA that keeps its input transform over more output
+    channels and more input channels spends less of its time on the
+    transform and the cross-CTA sum: on the H100 that beat filling all 132
+    SMs with thinner CTAs (PERF.md)."""
+    th, tw = H // 2, W // 2
+    chunks = _cdiv(C, 16)
+    tiling = 0 if min(th, tw) >= TILINGS[0][0] else 1
+    TH, TW, FB, US = TILINGS[tiling]
+    blocks, nfb = B * _cdiv(th, TH) * _cdiv(tw, TW), _cdiv(F, FB)
+    split = 1
+    while split < min(MAX_CLUSTER, chunks) and _cdiv(chunks, split) > US // 16:
+        split *= 2
+    groups = 1
+    while blocks * split * groups < MIN_CTAS:
+        if split < MAX_CLUSTER and _cdiv(chunks, 2 * split) >= 2:
+            split *= 2
+        elif groups < nfb:
+            groups = min(nfb, 2 * groups)
+        elif split < min(MAX_CLUSTER, chunks):
+            split *= 2
+        else:
+            break
+    if _cdiv(chunks, split) > US // 16:
+        groups = nfb
+    fper = _cdiv(nfb, groups)
+    return LaunchConfig(tiling, split, 16 * _cdiv(chunks, split),
+                        _cdiv(nfb, fper), fper)
+
+
 def _kernels():
     from . import _build
     lib = _build.load(_SOURCE)
     plain, fused = lib.winograd_f23_conv, lib.winograd_f23_conv_fused
     if plain.argtypes is None:  # pointers must not pass as 32-bit ints
-        p, i = ctypes.c_void_p, ctypes.c_int
-        plain.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        p, i, cfg = ctypes.c_void_p, ctypes.c_int, ctypes.c_int * 5
+        plain.argtypes = [p, p, p, i, i, i, i, i, i, cfg, p]
+        fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, cfg, p]
         plain.restype = fused.restype = ctypes.c_int
+        for tiling, want in enumerate(TILINGS):
+            got = (ctypes.c_int * 4)()
+            if lib.winograd_f23_tiling(tiling, got) != 0 or \
+                    tuple(got) != want:
+                raise RuntimeError(f"tiling {tiling}: the kernel has "
+                                   f"{tuple(got)}, TILINGS {want}")
     return plain, fused
 
 
@@ -174,12 +244,13 @@ def winograd_conv3x3_cuda(x: torch.Tensor, v: torch.Tensor,
         raise ValueError("x and V must be on one device")
     Fo = v.shape[2]
     plain, fused = _kernels()
+    config = (ctypes.c_int * 5)(*launch_config(B, C, Fo, H, W))
     y = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if prologue is None:
             err = plain(x.data_ptr(), v.data_ptr(), y.data_ptr(),
-                        B, C, Fo, H, W, _DTYPES[x.dtype], stream)
+                        B, C, Fo, H, W, _DTYPES[x.dtype], config, stream)
         else:
             a, b = prologue
             for t in (a, b):
@@ -190,7 +261,7 @@ def winograd_conv3x3_cuda(x: torch.Tensor, v: torch.Tensor,
                                      f"{t.dtype} {tuple(t.shape)}")
             err = fused(x.data_ptr(), v.data_ptr(), a.data_ptr(),
                         b.data_ptr(), y.data_ptr(), B, C, Fo, H, W,
-                        _DTYPES[x.dtype], stream)
+                        _DTYPES[x.dtype], config, stream)
     if err != 0:
         raise RuntimeError(f"winograd_f23 launch failed: cudaError {err}")
     launch_counts["winograd_conv3x3" if prologue is None

@@ -25,9 +25,17 @@ from kdip_tpu_torch.ops import winograd as Wg
 pytestmark = pytest.mark.cuda
 
 # (B, C, F, H, W): the hottest FFHQ-256 shape, the deepest, C and F not
-# multiples of 16 with H, W not multiples of 16, and B = 2
+# multiples of 16 with H, W not multiples of 16, and B = 2; with the rest,
+# every launch configuration `launch_config` can choose (both tilings, a C
+# split of 1, 2, 4 and 8, CTAs with several F blocks, slices that U holds
+# in rounds, V rows that are not 16-byte pieces; tests/
+# test_torch_winograd_launch.py checks the list reaches all of them)
 SHAPES = [(1, 128, 128, 256, 256), (1, 1024, 512, 8, 8),
-          (2, 40, 24, 18, 22), (2, 3, 5, 6, 4)]
+          (2, 40, 24, 18, 22), (2, 3, 5, 6, 4),
+          (1, 64, 64, 256, 256), (2, 64, 48, 128, 128),
+          (1, 200, 60, 64, 64), (1, 768, 256, 32, 32),
+          (1, 256, 256, 16, 16), (2, 32, 16, 8, 8), (2, 48, 40, 8, 8),
+          (4, 256, 64, 8, 8), (16, 16, 128, 12, 12)]
 
 
 @pytest.fixture

@@ -106,6 +106,42 @@ def test_plain_matches_pallas_bf16(prologue):
     assert (y_t == y_j).mean() >= 0.95
 
 
+def test_bf16_chunked_sum_departure():
+    """A departure from kdip_tpu, recorded on purpose. With C > 128,
+    kdip_tpu's `_forward` (winograd_pallas.py:251-278) runs the Pallas
+    kernel on 128-channel chunks and adds the chunks' bf16 outputs in bf16;
+    the port accumulates the whole of C in float32 and rounds once. At
+    [1, 256 -> 160, 8, 8] bf16:
+    - kdip_tpu's output is what the chunked sum predicts from the port's
+      own plain version run on each chunk, bf16(bf16(y_1) + bf16(y_2)),
+      within the bf16 test's bar (one ulp, 2^-7 |y|, + 2^-14 max|y|, at
+      least 95% bit-equal; measured: all of them);
+    - the port and kdip_tpu then differ: at most 2^-6 max|y| apart (two
+      roundings of two chunks, each <= 2^-8 |y_k|; measured 0.43%), and
+      fewer than 90% of outputs bit-equal (measured 62.9%);
+    - the port is no further from a float64 conv of the same bf16 inputs
+      than kdip_tpu (norm-relative; measured 0.490% against 0.520%)."""
+    x, w, _, _ = draws(1, 8, 8, 256, 160, seed=6, w_scale=0.02)
+    w = np.asarray(jnp.asarray(w).astype(jnp.bfloat16).astype(jnp.float32))
+    x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    y_j = pallas(x, w, dtype=jnp.bfloat16)
+    y_t = port(x, w, dtype=torch.bfloat16)
+    halves = [port(x[..., c:c + 128], w[:, :, c:c + 128], dtype=torch.bfloat16)
+              for c in (0, 128)]
+    predicted = (torch.from_numpy(halves[0]) + torch.from_numpy(halves[1])
+                 ).to(torch.bfloat16).float().numpy()
+    scale = np.abs(y_j).max()
+    tol = 2 ** -7 * np.abs(y_j) + 2 ** -14 * scale
+    assert (np.abs(predicted - y_j) <= tol).all()
+    assert (predicted == y_j).mean() >= 0.95
+    assert np.abs(y_t - y_j).max() <= 2 ** -6 * scale
+    assert (y_t == y_j).mean() < 0.9
+    ref = nhwc(F.conv2d(nchw(x).double(), oihw(w).double(), padding=1))
+    err_t = np.linalg.norm(y_t - ref) / np.linalg.norm(ref)
+    err_j = np.linalg.norm(y_j - ref) / np.linalg.norm(ref)
+    assert err_t <= err_j
+
+
 @pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
 def test_autograd_matches_jax_grad(prologue):
     """d/dx, d/dW (and d/da, d/db) of sum(sin(conv)) against jax.grad of
