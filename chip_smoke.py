@@ -13,12 +13,16 @@ each printing one JSON line:
    nvcc per source) with ptxas's register report;
 2. kernels: the Haar DWT kernel against its plain version at
    [4, 3, 256, 256] float32, levels 1-3: forward, inverse, round trip, and
-   the autograd backward;
+   the autograd backward; and its fused CG matvec (s2*v + mask *
+   idwt2(theta * dwt2(v))) at [4, 3, 256, 256] and [1, 3, 256, 256],
+   levels 1-3, with and without the mask, theta and the mask per sample
+   and repeating over the batch, with the bit-equal share;
 3. slice, DWT-Var: ADMUNetV2 (bf16 torso, params pre-cast), p=0.5
    inpainting (configs/inpainting_config.yaml), Type-I guidance with the
    learned DWT covariance, mle threshold 1.0 (the CLI's --v2 default),
    50-step Heun with churn, 4 samples against one measurement; the DWT
-   launch counts are reset just before and read just after;
+   launch counts are reset just before and read just after, and the fused
+   matvec's must be the CG iterations plus one per CG solve;
 4. one guided NFE below the threshold, with the kernel DWT and with the
    plain DWT, compared; the kernel run is traced with torch.profiler for
    the device's busy share and its top kernels;
@@ -46,7 +50,8 @@ each printing one JSON line:
 10. the `kernels` line: per kernel, its launches in its slice (phases 3
    and 7), its error, its time against its plain version's, its bound and,
    for the Winograd kernels, cuDNN's direct conv, at the slice's hottest
-   shape.
+   shape; for the fused matvec, the six-launch chain it replaces and an
+   empty kernel's device time beside it.
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line. Any failed phase raises, so the script exits non-zero and prints no
@@ -77,6 +82,7 @@ INPAINTING = dict(name="inpainting", sigma_s=0.05,
                                 image_size=256))
 N_SAMPLES = 4
 DWT_TOL = 1e-6      # kernel vs plain: the same float32 roundings (phase 2)
+DWT_EQUAL = 0.999   # least bit-equal share of the fused matvec (phase 2)
 NFE_TOL = 1e-3      # kernel-DWT vs plain-DWT guided NFE (see phase 4)
 NFE_REPS = 5        # timed calls per NFE variant in phases 4 and 8
 # Winograd kernel vs its plain version (phase 6), per element:
@@ -159,6 +165,10 @@ class PlainDWT:
         from kdip_tpu_torch.ops.dwt import idwt2_plain
         return idwt2_plain(x, self.level)
 
+    def masked_cov_matvec(self, v, theta, mask, s2):
+        from kdip_tpu_torch.ops.dwt import ot_matvec_plain
+        return ot_matvec_plain(v, theta, mask, s2, self.level)
+
 
 def cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
     """Mean time per call of fn() over `reps` back-to-back calls, by CUDA
@@ -226,7 +236,51 @@ def phase_kernels(dev):
             if not v <= tol:
                 raise AssertionError(f"level {level} {k}: |d| {v} > {tol}")
     emit({"phase": "kernels", "shape": [4, 3, 256, 256], "tol": DWT_TOL,
-          "round_trip_tol": 2 * DWT_TOL, "max_abs_err": errs})
+          "round_trip_tol": 2 * DWT_TOL, "max_abs_err": errs,
+          "ot_matvec": matvec_compare(dev)})
+
+
+def matvec_inputs(dev, B, seed):
+    """v ~ N(0, 1), theta in [0.5, 1.5), a 0/1 mask of density 0.5, all
+    [B, 3, 256, 256] float32, and s2 = float32(0.05)^2, the inpainting
+    solve's sigma_s^2."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (B, 3, SIZE, SIZE)
+    v = torch.randn(shape, generator=g, device=dev)
+    theta = 0.5 + torch.rand(shape, generator=g, device=dev)
+    mask = (torch.rand(shape, generator=g, device=dev) < 0.5).float()
+    return v, theta, mask, float(np.float32(0.05) ** 2)
+
+
+def matvec_compare(dev):
+    """The fused matvec against ot_matvec_plain, within DWT_TOL and at
+    least DWT_EQUAL bit-equal (the same roundings, so 100% is expected):
+    at B = 4 and 1, levels 1-3; theta and the mask per sample, repeating
+    over the batch ([1, C, H, W], as the batched path and the inpainting
+    mask give them), and no mask (ot_covariance)."""
+    import torch
+    from kdip_tpu_torch.ops import dwt as D
+    res = {}
+    for B in (4, 1):
+        v, theta, mask, s2 = matvec_inputs(dev, B, seed=B)
+        forms = {"masked": (theta, mask, s2),
+                 "repeating": (theta[:1].contiguous(), mask[:1].contiguous(),
+                               s2),
+                 "maskless": (theta, None, 0.0)}
+        for level in (1, 2, 3):
+            for form, (t, m, s) in forms.items():
+                got = D.haar_ot_matvec_cuda(v, t, m, s, level)
+                want = D.ot_matvec_plain(v, t, m, s, level)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                equal = (got == want).float().mean().item()
+                key = f"B{B} L{level} {form}"
+                res[key] = {"max_abs_err": err, "bit_equal": equal}
+                if not (err <= DWT_TOL and equal >= DWT_EQUAL):
+                    raise AssertionError(f"ot_matvec {key}: |d| {err}, "
+                                         f"{equal:.5f} bit-equal")
+    return res
 
 
 def wino_inputs(dev, B, C, F, H, W, seed):
@@ -326,6 +380,21 @@ def build_slice(dev, v2: bool, seed: int, winograd: bool = False):
     g = torch.Generator(device=dev).manual_seed(seed + 100)
     x_true = torch.rand(1, 3, SIZE, SIZE, generator=g, device=dev) * 2 - 1
     return model, tables, op, op.measure(x_true, generator=g), x_true
+
+
+def guided_nfes_below(thres: float) -> int:
+    """Guided NFEs of one Heun-50 trajectory (STEPS, churn) at a sigma
+    below `thres`, from the schedule as samplers.sample_heun walks it: a
+    call at sigma_hat each step, and at sigma_next where that is not 0."""
+    from kdip_tpu_torch import sampling_api, samplers, schedules
+    c = sampling_api.SamplerConfig(steps=STEPS)
+    sig = schedules.get_sigmas_karras(c.steps, c.sigma_min, c.sigma_max,
+                                      c.rho).numpy()
+    gammas = samplers._churn_gammas(sig, c.s_churn, c.s_tmin, c.s_tmax)
+    calls = [float(sig[i] * (gammas[i] + np.float32(1)))
+             for i in range(len(sig) - 1)]
+    calls += [float(s) for s in sig[1:] if s != 0]
+    return sum(s < thres for s in calls)
 
 
 def winograd_per_nfe(model):
@@ -481,7 +550,7 @@ def trace_device_events(work):
     trace lost them. On the H100 a trace that follows a long one can lose
     the records of its first kernels (1 to 10 seen), so LEAD_IN_KERNELS
     small kernels run first, then a spin kernel (torch.cuda._sleep) that
-    marks where work() begins."""
+    marks where work() begins: the first spin kernel of the trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -497,7 +566,7 @@ def trace_device_events(work):
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     marks = [j for j, e in enumerate(events) if "spin_kernel" in e.name]
-    return events[marks[-1] + 1:] if marks else None
+    return events[marks[0] + 1:] if marks else None
 
 
 def device_events_by_name(events):
@@ -518,17 +587,20 @@ def profiled_kernel_ms(fn, name_part: str, reps: int = 50):
     return profiled_cases_ms([fn], name_part, reps)[0][0]
 
 
-def profiled_cases_ms(fns, name_part: str, reps: int):
+def profiled_cases_ms(fns, name_part, reps: int):
     """[(mean device time of the kernel whose name holds `name_part`, of
     the device events that follow it in the same call)] per call of each
-    fn in `fns`, all from one torch.profiler (CUPTI) trace. Each call of
-    a fn must launch one such kernel before its other device work, on one
-    stream: each fn is called 1 + `reps` times (the first warms up), and
-    the device's events (`trace_device_events`), in the order they ran,
-    are cut at each `name_part` kernel, so no host timestamp is needed.
-    (None, None) for every fn where the trace was lost; a trace that holds
-    some of the kernels but not all of them fails."""
+    fn in `fns`, all from one torch.profiler (CUPTI) trace. `name_part` is
+    one string, or one per fn. Each call of a fn must launch one such
+    kernel before its other device work, on one stream: each fn is called
+    1 + `reps` times (the first warms up), and the device's events
+    (`trace_device_events`), in the order they ran, are cut at each
+    `name_part` kernel, so no host timestamp is needed. (None, None) for
+    every fn where the trace was lost; a trace that holds some of the
+    kernels but not all of them fails."""
     import torch
+    parts = [name_part] * len(fns) if isinstance(name_part, str) \
+        else list(name_part)
 
     def work():
         for fn in fns:
@@ -538,10 +610,13 @@ def profiled_cases_ms(fns, name_part: str, reps: int):
     events = trace_device_events(work)
     if events is None:
         return [(None, None)] * len(fns)
-    marks = [j for j, e in enumerate(events) if name_part in e.name]
-    if len(marks) != len(fns) * (1 + reps):
-        raise AssertionError(f"the trace holds {len(marks)} {name_part} "
-                             f"kernels of {len(fns) * (1 + reps)} launched")
+    marks = [j for j, e in enumerate(events)
+             if any(p in e.name for p in parts)]
+    want = [p for p in parts for _ in range(1 + reps)]
+    if len(marks) != len(want) or not all(
+            p in events[j].name for j, p in zip(marks, want)):
+        raise AssertionError(f"the trace holds {len(marks)} {parts} "
+                             f"kernels of {len(want)} launched")
     marks.append(len(events))
     out = []
     for i in range(len(fns)):
@@ -882,7 +957,61 @@ def kernel_rows(dev, launches):
                      "bound_by": bound_by, "library_ms": None})
         if not err <= DWT_TOL:
             raise AssertionError(f"{name} at the slice's shape: {err}")
-    return rows
+    return rows + [matvec_row(dev, launches["haar_ot_matvec"])]
+
+
+def matvec_row(dev, launches):
+    """The fused matvec's row, at the slice's [1, 3, 256, 256], level 3,
+    with the inpainting mask's [1, C, H, W] and s2 = sigma_s^2, through
+    `OrthoTransform.masked_cov_matvec` as the CG calls it. The bound: v,
+    theta and the mask read once, y written once. No single PyTorch call
+    computes this function, so the yardstick is the six-launch chain it
+    replaces, timed the same way on the same inputs: s2*v + mask *
+    inv(theta * ot(v)) with the standalone kernels. launch_floor_ms is an
+    empty kernel's (torch.cuda._sleep(0)) device time in the same trace."""
+    import torch
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import transforms as T
+    v, theta, mask, s2 = matvec_inputs(dev, 1, seed=5)
+    ot = T.OrthoTransform("dwt")
+    n = v.numel()
+    nbytes = 4 * 4 * n
+    # two transforms (5.25 flops a value), theta*, s2*v, mask*w, the add
+    flops = 2 * 4 * n * (1 + 1 / 4 + 1 / 16) + 4 * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+
+    def fused():
+        return ot.masked_cov_matvec(v, theta, mask, s2)
+
+    def composed():
+        return s2 * v + mask * ot.inv(theta * ot(v))
+    got, want = fused(), D.ot_matvec_plain(v, theta, mask, s2)
+    err = (got - want).abs().max().item()
+    equal = (got == want).float().mean().item()
+    if not (err <= DWT_TOL and equal >= DWT_EQUAL):
+        raise AssertionError(f"haar_ot_matvec at the slice's shape: {err}, "
+                             f"{equal:.5f} bit-equal")
+    if not torch.equal(composed(), want):
+        raise AssertionError("the composed chain differs from the plain one")
+    ms = cuda_time_ms(fused)
+    composed_ms = cuda_time_ms(composed)
+    plain_ms = cuda_time_ms(lambda: D.ot_matvec_plain(v, theta, mask, s2))
+    ms2 = cuda_time_ms(fused)
+    (dev_ms, _), (c_first, c_rest), (floor_ms, _) = profiled_cases_ms(
+        [fused, composed, lambda: torch.cuda._sleep(0)],
+        ("haar_dwt2_matvec", "haar_dwt2_fwd", "spin_kernel"), 50)
+    return {"name": "haar_ot_matvec", "route": "cuda",
+            "source": "kdip_tpu_torch/csrc/haar_dwt.cu",
+            "replaces": "kdip_tpu/ops/pallas_dwt.py:49",
+            "launches": launches, "max_abs_err": err, "bit_equal": equal,
+            "ms": min(ms, ms2), "ms_runs": [ms, ms2], "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "composed_ms": composed_ms,
+            "composed_device_ms": None if c_first is None
+            else c_first + (c_rest or 0.0),
+            "launch_floor_ms": floor_ms,
+            "launch_config": D.launch_config(3, SIZE, SIZE)._asdict()}
 
 
 def main() -> int:
@@ -910,8 +1039,14 @@ def main() -> int:
                            n=N_SAMPLES)
     emit(rec)
     launches = rec["dwt_launches"]
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"the DWT-Var run launched no kernel: {launches}")
+    # one matvec per CG iteration, and the initial residual's of each solve
+    solves = N_SAMPLES * guided_nfes_below(dwt_cfg.mle_sigma_thres)
+    want = rec["cg_total_iters"] + solves
+    emit({"phase": "slice_dwt_var_launches", "cg_solves": solves,
+          "haar_ot_matvec_expected": want, "dwt_launches": launches})
+    if launches["haar_ot_matvec"] != want:
+        raise AssertionError(f"DWT-Var: {launches['haar_ot_matvec']} fused "
+                             f"matvec launches, expected {want}")
 
     phase_nfe_compare(dev, dwt_cfg, parts)
     del parts

@@ -178,8 +178,8 @@ def inpainting_mat(op: InpaintingOperator, y, x0_mean, theta0_var, ortho_tf,
     if iso:
         return b / _f32(np.float32(sigma_s2) + np.float32(theta0_var)), 0.0, 0
 
-    def matvec(v):
-        return sigma_s2 * v + mask * ortho_tf.inv(theta0_var * ortho_tf(v))
+    def matvec(v):  # sigma_s2 v + mask W^-1(theta0_var W v), fused
+        return ortho_tf.masked_cov_matvec(v, theta0_var, mask, sigma_s2)
 
     return _cg(matvec, b, cfg)
 

@@ -35,10 +35,21 @@ class OrthoTransform:
             return x
         return _dwt.idwt2(x, self.level)
 
+    def masked_cov_matvec(self, v: torch.Tensor, theta: torch.Tensor,
+                          mask: torch.Tensor, s2: float) -> torch.Tensor:
+        """s2 * v + mask * inv(theta * self(v)), the inpainting solve's CG
+        matvec (ref: condition.py:317-348): for "dwt" the fused kernel of
+        `ops.dwt.ot_matvec`, one launch on the card."""
+        if self.ortho_tf_type is None:
+            return s2 * v + mask * (theta * v)
+        return _dwt.ot_matvec(v, theta, mask, s2, self.level)
+
 
 def ot_covariance(ortho_tf: OrthoTransform, variance: torch.Tensor) -> Callable:
     """C = W diag(v) W^T as a matvec closure
     (ref: condition/utils.py:146-163 LazyOTCovariance)."""
     def matvec(x):
+        if ortho_tf.ortho_tf_type == "dwt":
+            return _dwt.ot_matvec(x, variance, level=ortho_tf.level)
         return ortho_tf.inv(ortho_tf(x) * variance)
     return matvec

@@ -95,7 +95,8 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 _NO_NVCC = """
 import kdip_tpu_torch.ops.dwt as D
 import kdip_tpu_torch.ops._build as B, torch
-assert D.launch_counts == {"haar_dwt2": 0, "haar_idwt2": 0}
+assert D.launch_counts == {"haar_dwt2": 0, "haar_idwt2": 0,
+                           "haar_ot_matvec": 0}
 y = D.dwt2(torch.ones(1, 1, 8, 8), 3)  # the CPU path builds nothing
 try:
     B.find_nvcc()

@@ -35,7 +35,8 @@ def test_kernel_matches_plain(card, level, shape):
     y = D.haar_dwt2_cuda(x, level, inverse=False)
     xi = D.haar_dwt2_cuda(x, level, inverse=True)
     torch.cuda.synchronize()
-    assert D.launch_counts == {"haar_dwt2": 1, "haar_idwt2": 1}
+    assert D.launch_counts == {"haar_dwt2": 1, "haar_idwt2": 1,
+                               "haar_ot_matvec": 0}
     assert (y - D.dwt2_plain(x, level)).abs().max().item() <= 1e-6
     assert (xi - D.idwt2_plain(x, level)).abs().max().item() <= 1e-6
     back = D.haar_dwt2_cuda(y, level, inverse=True)
@@ -61,3 +62,60 @@ def test_kernel_rejects_what_it_cannot_take(card):
         D.haar_dwt2_cuda(x[..., :12].contiguous(), 3, False)
     y = D.haar_dwt2_cuda(x.to(torch.bfloat16), 2, False)
     assert y.dtype == torch.bfloat16
+
+
+def _matvec_inputs(card, shape, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    v = torch.randn(shape, generator=g, device=card)
+    theta = 0.5 + torch.rand(shape, generator=g, device=card)
+    mask = (torch.rand(shape, generator=g, device=card) < 0.5).float()
+    return v, theta, mask
+
+
+@pytest.mark.parametrize("form", ["masked", "repeating", "maskless"])
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(4, 3, 256, 256), (1, 3, 256, 256),
+                                   (1, 2, 16, 24)])
+def test_matvec_matches_plain(card, shape, level, form):
+    """The fused matvec s2*v + mask * idwt2(theta * dwt2(v)) within 1e-6 of
+    ot_matvec_plain and at least 99.9% bit-equal: the same roundings in
+    the same order. theta and the mask per sample, repeating over the
+    batch, or no mask; one launch."""
+    v, theta, mask = _matvec_inputs(card, shape, level)
+    s2 = 0.05 ** 2
+    if form == "repeating":
+        theta, mask = theta[:1].contiguous(), mask[:1].contiguous()
+    if form == "maskless":
+        mask, s2 = None, 0.0
+    D.reset_launch_counts()
+    got = D.ot_matvec(v, theta, mask, s2, level)
+    torch.cuda.synchronize()
+    assert D.launch_counts == {"haar_dwt2": 0, "haar_idwt2": 0,
+                               "haar_ot_matvec": 1}
+    want = D.ot_matvec_plain(v, theta, mask, s2, level)
+    assert (got - want).abs().max().item() <= 1e-6
+    assert (got == want).float().mean().item() >= 0.999
+
+
+def test_matvec_unaligned_view_takes_8_byte_accesses(card):
+    """A view that starts 8 bytes into its storage gets the launch with
+    8-byte accesses, and the same result; one that starts 4 bytes in is
+    refused."""
+    v, theta, mask = _matvec_inputs(card, (1, 3, 64, 64), 0)
+    store = torch.empty(v.numel() + 2, device=card)
+    vs = store[2:].view(v.shape)
+    vs.copy_(v)
+    assert vs.data_ptr() % 16 == 8 and vs.is_contiguous()
+    got = D.haar_ot_matvec_cuda(vs, theta, mask, 0.0025, 3)
+    assert torch.equal(got, D.haar_ot_matvec_cuda(v, theta, mask, 0.0025, 3))
+    assert torch.equal(got, D.ot_matvec_plain(v, theta, mask, 0.0025, 3))
+    with pytest.raises(ValueError, match="aligned"):
+        D.haar_ot_matvec_cuda(store[1:-1].view(v.shape), theta, mask, 0.0025)
+
+
+def test_matvec_rejects_what_it_cannot_take(card):
+    v, theta, mask = _matvec_inputs(card, (2, 3, 32, 32), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        D.haar_ot_matvec_cuda(v, theta.cpu(), mask)
+    with pytest.raises(ValueError, match="differentiable"):
+        D.haar_ot_matvec_cuda(v.requires_grad_(True), theta, mask)
