@@ -47,11 +47,23 @@ each printing one JSON line:
    its own shape: the kernel against its plain version, its device time
    beside cuDNN's direct conv (one torch.profiler trace for all shapes)
    and the bound; then a line that sums them per level (H) and per NFE;
-10. the `kernels` line: per kernel, its launches in its slice (phases 3
-   and 7), its error, its time against its plain version's, its bound and,
-   for the Winograd kernels, cuDNN's direct conv, at the slice's hottest
-   shape; for the fused matvec, the six-launch chain it replaces and an
-   empty kernel's device time beside it.
+10. slices on the other operators of bench.py's grid, each Heun-50 with
+   churn, n samples against one measurement, operators from configs/:
+   gaussian deblur with Convert (no DWT or Winograd launch), motion deblur
+   with Convert (the PSF loaded from kdip_tpu_torch/data, as the card has
+   no PIL), 4x super-resolution with Convert (y is [1, 3, 64, 64]),
+   gaussian deblur with tmpd (a CG solve at every NFE), and gaussian
+   deblur with DWT-Var (the fused matvec's no-mask mode, its launches the
+   CG iterations plus one per solve);
+11. one tmpd and one DWT-Var gaussian-deblur guided NFE, each traced: its
+   device time by kind (the FFTs are cuFFT's), the idle share and the CG
+   iterations; and tmpd's variance at a few sigmas: its range and the
+   share of it below 0 (the Jacobian's column sums need not be positive);
+12. the `kernels` line: per kernel, its launches in its slices (phases 3,
+   7 and 10), its error, its time against its plain version's, its bound
+   and, for the Winograd kernels, cuDNN's direct conv, at the slice's
+   hottest shape; for the fused matvec, the six-launch chain it replaces
+   and an empty kernel's device time beside it.
 
 Then the card's name and power limit (nvidia-smi) and, last, the result
 line. Any failed phase raises, so the script exits non-zero and prints no
@@ -81,6 +93,13 @@ INPAINTING = dict(name="inpainting", sigma_s=0.05,
                   mask_opt=dict(mask_type="random", mask_prob_range=(0.5, 0.5),
                                 image_size=256))
 N_SAMPLES = 4
+# the motion-blur PSF of configs/motion_deblur_config.yaml, drawn with seed 0
+# where PIL is installed (tests/test_torch_fft_ops.py pins it)
+MOTION_PSF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "kdip_tpu_torch", "data",
+                          "motion_ks61_i0.5_seed0.npy")
+BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
+TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
 DWT_TOL = 1e-6      # kernel vs plain: the same float32 roundings (phase 2)
 DWT_EQUAL = 0.999   # least bit-equal share of the fused matvec (phase 2)
 NFE_TOL = 1e-3      # kernel-DWT vs plain-DWT guided NFE (see phase 4)
@@ -117,11 +136,33 @@ KERNEL_KINDS = (("haar_dwt", ("haar_dwt2",)),
                 ("conv_gemm", ("xmma", "cutlass", "gemm", "conv", "sm90_")),
                 ("reduction", ("reduce_kernel", "reduce")),
                 ("memcpy_memset", ("Memcpy", "Memset")),
+                ("fft", ("fft",)),
                 ("elementwise", ("elementwise", "copy_kernel", "Functor")))
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def load_op_config(fname: str, **overrides) -> dict:
+    """An operator yaml of configs/ (flat `key: value` lines, JSON values or
+    bare strings, # comments), read without PyYAML, which the card's
+    machine may lack."""
+    cfg = {}
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", fname)
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            key, value = (p.strip() for p in line.split(":", 1))
+            try:
+                cfg[key] = json.loads(value)
+            except json.JSONDecodeError:
+                cfg[key] = value
+    cfg.update(overrides)
+    return cfg
 
 
 def nvidia_smi() -> str:
@@ -352,12 +393,14 @@ def phase_kernels_winograd(dev):
           "results": res})
 
 
-def build_slice(dev, v2: bool, seed: int, winograd: bool = False):
+def build_slice(dev, v2: bool, seed: int, winograd: bool = False,
+                op_cfg=None):
     """(model, tables, operator, measurement) of one configuration at full
     width: ffhq_unet (+ the out_cov head for v2), or with winograd the
     model the CLI builds (`config.make_openai_model` on
     configs/test_ffhq.json, winograd=True), weights from `seed`, bf16
-    torso with the norm parameters in float32."""
+    torso with the norm parameters in float32; the operator from `op_cfg`
+    (default: p=0.5 inpainting), the measurement of a random image."""
     import torch
     from kdip_tpu_torch import config, diffusion, operators, weights
     from kdip_tpu_torch.models import adm
@@ -374,9 +417,10 @@ def build_slice(dev, v2: bool, seed: int, winograd: bool = False):
         model = adm.ADMUNetV2(model)
     randomize_(model, seed)
     weights.precast_inference(model).eval().requires_grad_(False)
-    op = operators.get_operator(
-        seed=0, device=dev, **dict(INPAINTING, mask_opt=dict(
-            INPAINTING["mask_opt"], image_size=SIZE)))
+    if op_cfg is None:
+        op_cfg = dict(INPAINTING, mask_opt=dict(INPAINTING["mask_opt"],
+                                                image_size=SIZE))
+    op = operators.get_operator(seed=0, device=dev, **op_cfg)
     g = torch.Generator(device=dev).manual_seed(seed + 100)
     x_true = torch.rand(1, 3, SIZE, SIZE, generator=g, device=dev) * 2 - 1
     return model, tables, op, op.measure(x_true, generator=g), x_true
@@ -410,14 +454,15 @@ def winograd_per_nfe(model):
 
 
 def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
-              winograd: bool = False):
+              winograd: bool = False, op_cfg=None):
     """Heun-50 with churn, n samples against one measurement; returns the
-    phase record (and the measurement pieces for phases 4 and 8)."""
+    phase record (and the measurement pieces for phases 4, 8 and 11)."""
     import torch
     from kdip_tpu_torch import sampling_api
     from kdip_tpu_torch.ops import dwt as D
     from kdip_tpu_torch.ops import winograd as Wg
-    model, tables, op, meas, x_true = build_slice(dev, v2, seed, winograd)
+    model, tables, op, meas, x_true = build_slice(dev, v2, seed, winograd,
+                                                  op_cfg)
     scfg = sampling_api.SamplerConfig(steps=STEPS)
     sampler = sampling_api.build_posterior_sampler(
         model, tables, op, gcfg, scfg, v2=v2, image_size=SIZE, device=dev)
@@ -434,7 +479,8 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
     wino_launches = dict(Wg.launch_counts)
     nfe = n * (2 * scfg.steps - 1)
     amax = out.abs().max().item()
-    rec = {"phase": name, "n": n, "steps": scfg.steps,
+    rec = {"phase": name, "n": n, "steps": scfg.steps, "operator": op.name,
+           "y_shape": list(meas.y.shape),
            "wall_s": wall, "samples_per_s": n / wall, "nfe": nfe,
            "ms_per_nfe": 1e3 * wall / nfe,
            "cg_max_residual": info["cg_max_residual"],
@@ -518,11 +564,7 @@ def phase_nfe_compare(dev, gcfg, parts):
     kernels = device_events_by_name(trace_device_events(traced_nfe))
     t_prof = walls_prof[0]
     busy_ms = sum(k[0] for k in kernels)
-    by_kind = {}
-    for ms, _, name in kernels:
-        kind = next((k for k, parts in KERNEL_KINDS if any(
-            p in name for p in parts)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    by_kind = device_ms_by_kind(kernels)
     rec = {"phase": "nfe_kernel_vs_plain_dwt", "sigma": sigma,
            "max_abs_diff": diff, "tol": NFE_TOL,
            "cg_iters": [info_k["cg_iters"], info_p["cg_iters"]],
@@ -542,6 +584,17 @@ def phase_nfe_compare(dev, gcfg, parts):
     if not diff <= NFE_TOL or abs(info_k["cg_iters"] - info_p["cg_iters"]) > 2:
         raise AssertionError(f"kernel vs plain NFE: {diff} > {NFE_TOL} or "
                              f"iterations {rec['cg_iters']}")
+
+
+def device_ms_by_kind(kernels) -> dict:
+    """Device ms of a trace's kernels ([(ms, count, name)]) by KERNEL_KINDS,
+    the first kind whose name part a kernel's name holds, else "other"."""
+    by_kind = {}
+    for ms, _, name in kernels:
+        kind = next((k for k, parts in KERNEL_KINDS if any(
+            p in name for p in parts)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    return by_kind
 
 
 def trace_device_events(work):
@@ -733,11 +786,7 @@ def phase_nfe_winograd(dev, gcfg, parts):
     kernels = device_events_by_name(trace_device_events(traced_nfe))
     t_prof = walls_prof[0]
     busy_ms = sum(k[0] for k in kernels)
-    by_kind = {}
-    for ms, _, name in kernels:
-        kind = next((k for k, names in KERNEL_KINDS if any(
-            p in name for p in names)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    by_kind = device_ms_by_kind(kernels)
     t_k = float(np.median(walls["kernel"]))
     iters = {k: res[k][1]["cg_iters"] for k in variants}
     rec = {"phase": "nfe_winograd", "sigma": sigma, "t": int(t_b),
@@ -764,6 +813,135 @@ def phase_nfe_winograd(dev, gcfg, parts):
         fails.append(f"CG iterations {iters}")
     if fails:
         raise AssertionError(f"nfe_winograd: {fails}")
+
+
+def run_blur_sr_slices(dev, n: int = N_SAMPLES):
+    """Phase 10: the slices of bench.py's grid on the blur and SR operators
+    (configs/*.yaml), each with its own check beyond run_slice's. Returns
+    the DWT launch counts of the DWT-Var deblur slice, and per NFE phase of
+    phase 11 its (guidance config, v2, slice pieces)."""
+    import torch
+    from kdip_tpu_torch import guidance as gd
+    convert = gd.GuidanceConfig("I", "convert")
+    blur = load_op_config("gaussian_deblur_config.yaml")
+
+    def no_dwt(rec):
+        if sum(rec["dwt_launches"].values()):
+            raise AssertionError(f"{rec['phase']} launched the DWT kernel: "
+                                 f"{rec['dwt_launches']}")
+
+    rec, _ = run_slice("slice_gaussian_deblur_convert", dev, False, convert,
+                       seed=3, n=n, op_cfg=blur)
+    emit(rec)
+    no_dwt(rec)
+
+    rec, parts = run_slice("slice_motion_deblur_convert", dev, False, convert,
+                           seed=4, n=n, op_cfg=load_op_config(
+                               "motion_deblur_config.yaml",
+                               kernel_path=MOTION_PSF))
+    k = parts[2].kernel
+    rec["psf"] = {"shape": list(k.shape), "sum": float(k.double().sum())}
+    emit(rec)
+    no_dwt(rec)
+    if tuple(k.shape) != (61, 61) or abs(rec["psf"]["sum"] - 1) > 1e-5:
+        raise AssertionError(f"motion PSF {rec['psf']}")
+    del parts
+
+    rec, _ = run_slice("slice_sr4x_convert", dev, False, convert, seed=5, n=n,
+                       op_cfg=load_op_config(
+                           "super_resolution_4x_config.yaml"))
+    emit(rec)
+    no_dwt(rec)
+    if rec["y_shape"] != [1, 3, SIZE // 4, SIZE // 4]:
+        raise AssertionError(f"SR measurement {rec['y_shape']}")
+
+    tmpd_cfg = gd.GuidanceConfig("I", "tmpd")
+    tmpd_rec, tmpd_parts = run_slice("slice_gaussian_deblur_tmpd", dev,
+                                     False, tmpd_cfg, seed=6, n=n,
+                                     op_cfg=blur)
+    emit(tmpd_rec)
+    no_dwt(tmpd_rec)
+    # a CG solve at every NFE, each at least one iteration
+    if tmpd_rec["cg_total_iters"] < tmpd_rec["nfe"]:
+        raise AssertionError(f"tmpd: {tmpd_rec['cg_total_iters']} CG "
+                             f"iterations over {tmpd_rec['nfe']} NFEs")
+    torch.cuda.empty_cache()
+
+    dwt_cfg = gd.GuidanceConfig("I", ortho_tf_type="dwt", mle_sigma_thres=1.0)
+    rec, dwt_parts = run_slice("slice_gaussian_deblur_dwt_var", dev, True,
+                               dwt_cfg, seed=7, n=n, op_cfg=blur)
+    emit(rec)
+    launches = rec["dwt_launches"]
+    want = rec["cg_total_iters"] + n * guided_nfes_below(
+        dwt_cfg.mle_sigma_thres)
+    if launches != {"haar_dwt2": 0, "haar_idwt2": 0, "haar_ot_matvec": want}:
+        raise AssertionError(f"DWT-Var deblur: launches {launches}, "
+                             f"expected {want} fused matvecs and no other")
+    return launches, {"nfe_tmpd": (tmpd_cfg, False, tmpd_parts),
+                      "nfe_deblur_dwt_var": (dwt_cfg, True, dwt_parts)}
+
+
+def phase_nfe_traced(name, dev, gcfg, v2: bool, parts):
+    """Phase 11: one guided NFE of a deblur slice at BLUR_NFE_SIGMA (below
+    every threshold, so a CG solve whose matvec runs four cuFFT transforms;
+    for tmpd also the ones-vjp on the retained graph). Untraced median
+    wall over NFE_REPS calls after a warm-up; then one traced call for the
+    device's busy time by kind. For tmpd, its variance's range at
+    TMPD_THETA_SIGMAS."""
+    import torch
+    from kdip_tpu_torch import guidance as gd
+    model, tables, op, meas, x_true = parts
+    sigma = BLUR_NFE_SIGMA
+    make = gd.make_openai_v2_uncond if v2 else gd.make_openai_uncond
+    uncond, var_fn = make(model, tables, gcfg)
+    den = gd.make_condition_denoiser(uncond, var_fn, op, meas, gcfg, v2=v2,
+                                     with_info=True)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = x_true + sigma * torch.randn(x_true.shape, generator=g, device=dev)
+    walls, iters = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(NFE_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, info = den(x, sigma)
+        torch.cuda.synchronize()
+        if rep:
+            walls.append(1e3 * (time.perf_counter() - t0))
+        iters.append(info["cg_iters"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
+
+    def traced_nfe():
+        den(x, sigma)
+        torch.cuda.synchronize()
+    kernels = device_events_by_name(trace_device_events(traced_nfe))
+    busy_ms = sum(k[0] for k in kernels)
+    t_med = float(np.median(walls))
+    rec = {"phase": name, "sigma": sigma, "operator": op.name,
+           "cg_iters": iters, "cg_resid": info["cg_resid"],
+           "median_wall_ms": t_med, "reps": NFE_REPS, "peak_mem_gib": peak,
+           "device_busy_ms": busy_ms if kernels else "not measured",
+           "device_ms_by_kind": device_ms_by_kind(kernels),
+           "fft_launches": sum(n for _, n, k in kernels if "fft" in k),
+           "device_idle_share": (1 - busy_ms / t_med) if kernels
+           else "not measured",
+           "top_kernels_ms": [[round(k[0], 4), k[1], k[2][:80]]
+                              for k in kernels[:10]]}
+    if gcfg.x0_cov_type == "tmpd" and not v2:
+        rec["theta"] = {}
+        for s in TMPD_THETA_SIGMAS:
+            xs = (x_true + s * torch.randn(x_true.shape, generator=g,
+                                           device=dev)).requires_grad_(True)
+            with torch.enable_grad():
+                m, aux = uncond(xs, s)
+                theta = var_fn(aux, s, lambda ct: torch.autograd.grad(
+                    m, xs, ct)[0], xs.shape)
+            rec["theta"][str(s)] = {
+                "min": theta.min().item(), "max": theta.max().item(),
+                "negative_share": (theta < 0).float().mean().item()}
+    emit(rec)
 
 
 def winograd_launch_shapes(model, dev):
@@ -1070,8 +1248,20 @@ def main() -> int:
     del parts
     torch.cuda.empty_cache()
 
-    emit({"kernels": kernel_rows(dev, launches)
-          + wino_kernel_rows(dev, wino_launches)})
+    deblur_launches, nfes = run_blur_sr_slices(dev)
+    for name, (gcfg, v2, parts) in nfes.items():
+        phase_nfe_traced(name, dev, gcfg, v2, parts)
+    del nfes, parts
+    torch.cuda.empty_cache()
+
+    by_slice = {"slice_dwt_var": launches,
+                "slice_gaussian_deblur_dwt_var": deblur_launches}
+    rows = kernel_rows(dev, {k: launches[k] + deblur_launches[k]
+                             for k in launches})
+    for row in rows:
+        row["launches_by_slice"] = {s: c[row["name"]]
+                                    for s, c in by_slice.items()}
+    emit({"kernels": rows + wino_kernel_rows(dev, wino_launches)})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

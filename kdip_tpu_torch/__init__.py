@@ -10,4 +10,5 @@ CUDA kernels live under `csrc/` and are built with nvcc at first use
 from . import (config, diffusion, guidance, operators, precond,  # noqa: F401
                samplers, sampling_api, schedules, weights)
 from .models import adm, layers  # noqa: F401
-from .ops import dwt, transforms, winograd  # noqa: F401
+from .ops import (dwt, fft, kernels, resize, transforms,  # noqa: F401
+                  winograd)

@@ -1,9 +1,11 @@
 """Conditional denoising E[x0 | xt, y] (PyTorch port of `kdip_tpu/guidance.py`;
 ref: condition/condition.py).
 
-This slice ports Type-I guidance (and the unguided "uncond" mode) for the
-OpenAI ADM models, with the Convert covariance (V1) and the learned
-DWT/spatial covariance heads (V2), and the inpainting likelihood solve.
+Ported: Type-I guidance (and the unguided "uncond" mode) for the OpenAI
+ADM models, with the Convert and tmpd covariances (V1) and the learned
+DWT/spatial covariance heads (V2), and the likelihood solves of the four
+linear operators: inpainting, deblurring (gaussian, motion), bicubic
+super-resolution and colorization.
 
 Differences of form from `kdip_tpu`, not of result:
 - sigma is a host-side float, so the mle-threshold switch
@@ -11,7 +13,8 @@ Differences of form from `kdip_tpu`, not of result:
   and the closed-form branch never computes the covariance tensors;
 - the CG loop runs on the host, testing its stopping rule after every
   iteration, which reads the residual back from the device;
-- the likelihood score is `torch.autograd.grad` of x0_mean at x.
+- the likelihood score is `torch.autograd.grad` of x0_mean at x, and
+  tmpd's variance a first `autograd.grad` on the retained graph.
 """
 
 from __future__ import annotations
@@ -24,24 +27,39 @@ import torch
 
 from . import diffusion as diff
 from . import precond
-from .operators import InpaintingOperator, Measurement
-from .ops.transforms import OrthoTransform
+from .operators import (BlurOperator, ColorizationOperator,
+                        InpaintingOperator, Measurement,
+                        SuperResolutionOperator)
+from .ops import fft as offt
+from .ops.transforms import OrthoTransform, ot_covariance
 
 _LATER = "is not ported yet: a later slice of the PyTorch port (ROADMAP queue 1)"
+
+# How each covariance reaches the solve (ref: kdip_tpu guidance.py:585-589,
+# the reference's theta0_var.numel() == 1 dispatch): "switch" - CG with the
+# covariance below mle_sigma_thres, the closed form at mle_var above (Convert
+# and the V2 heads); "tensor" - CG at every sigma (tmpd); "iso" - always the
+# closed form (the modes of ROADMAP queue 1 item 8).
+_COV_KIND = {"convert": "switch", "tmpd": "tensor", "pgdm": "iso",
+             "dps": "iso", "diffpir": "iso", "analytic": "iso"}
 
 
 @dataclasses.dataclass(frozen=True)
 class GuidanceConfig:
     """Guidance configuration (ref: condition.py:44-71; the fields of
-    `kdip_tpu.guidance.GuidanceConfig` that this slice uses). cg_maxiter
+    `kdip_tpu.guidance.GuidanceConfig` that the port uses). cg_maxiter
     None is the reference's 1000-iteration budget; CG stops once
-    |r|^2 <= cg_tol^2 |b|^2."""
+    |r|^2 <= cg_tol^2 |b|^2. cg_precondition preconditions CG with the
+    closed-form isotropic solve at the mean variance: fewer iterations on
+    near-isotropic covariances, harmful on wide-range ones such as tmpd's
+    (kdip_tpu guidance.py:65-74); off, as in the reference's scipy CG."""
     guidance: str = "I"
     x0_cov_type: str = "convert"
     mle_sigma_thres: float = 0.2
     ortho_tf_type: Optional[str] = None
     cg_tol: float = 1e-4
     cg_maxiter: Optional[int] = None
+    cg_precondition: bool = False
 
 
 def resolved_cg_maxiter(cfg: GuidanceConfig) -> int:
@@ -75,10 +93,17 @@ def make_openai_uncond(model_apply: Callable, tables: diff.DiffusionTables,
 
     model_apply(x_scaled, t_int) -> the raw ADMUNet output (eps + variance
     values, 2C channels). Returns (uncond_pred, x0_var_fn):
-    uncond_pred(x, sigma) -> (x0_mean, aux); x0_var_fn(aux, sigma) -> the
-    Convert covariance below mle_sigma_thres, mle_var(sigma) above."""
-    if cfg.x0_cov_type != "convert":
-        raise NotImplementedError(f"covariance {cfg.x0_cov_type!r} {_LATER}")
+    uncond_pred(x, sigma) -> (x0_mean, aux); x0_var_fn(aux, sigma,
+    mean_vjp, x_shape) -> for "convert" the Eq.22 covariance below
+    mle_sigma_thres, mle_var(sigma) above; for "tmpd" sigma^2 times the
+    vjp of x0_mean with a ones cotangent (ref: condition.py:268-269),
+    `mean_vjp(ct)` being the caller's vjp of x0_mean at x."""
+    if cfg.x0_cov_type not in _COV_KIND:
+        raise ValueError(f"unrecognized posterior covariance type "
+                         f"{cfg.x0_cov_type!r}")
+    if _COV_KIND[cfg.x0_cov_type] == "iso":
+        raise NotImplementedError(f"covariance {cfg.x0_cov_type!r} {_LATER},"
+                                  f" with its guidance modes (item 8)")
     log_sigmas = tables.log_sigmas.cpu()
 
     def uncond_pred(x, sigma):
@@ -91,7 +116,10 @@ def make_openai_uncond(model_apply: Callable, tables: diff.DiffusionTables,
                                    clip_denoised=True)
         return out["pred_xstart"], {"variance": out["variance"], "t": t_b}
 
-    def x0_var_fn(aux, sigma):
+    def x0_var_fn(aux, sigma, mean_vjp=None, x_shape=None):
+        if cfg.x0_cov_type == "tmpd":
+            ones = torch.ones(x_shape, device=aux["t"].device)
+            return mean_vjp(ones) * _f32(np.float32(sigma) ** 2)
         if sigma < cfg.mle_sigma_thres:
             return diff.convert_x0_var(tables, aux["variance"], aux["t"])
         return mle_var(sigma)
@@ -104,8 +132,9 @@ def make_openai_v2_uncond(model_apply: Callable, tables: diff.DiffusionTables,
     """uncond_pred of ConditionOpenAIDenoiserV2 (ref: condition.py:287-300).
 
     model_apply(x_scaled, t) -> (eps, logvar, logvar_ot), the ADMUNetV2
-    forward. x0_var_fn(aux, sigma) -> (x0_var, theta0_var): the learned
-    variances below mle_sigma_thres, mle_var(sigma) above."""
+    forward. x0_var_fn(aux, sigma, ...) -> (x0_var, theta0_var): the
+    learned variances below mle_sigma_thres, mle_var(sigma) above (the
+    vjp arguments of make_openai_uncond's are unused here)."""
     log_sigmas = tables.log_sigmas.cpu()
 
     def uncond_pred(x, sigma):
@@ -116,7 +145,7 @@ def make_openai_v2_uncond(model_apply: Callable, tables: diff.DiffusionTables,
         x0_mean = eps * _f32(c_out) + x
         return x0_mean, {"logvar": logvar, "logvar_ot": logvar_ot}
 
-    def x0_var_fn(aux, sigma):
+    def x0_var_fn(aux, sigma, mean_vjp=None, x_shape=None):
         if sigma < cfg.mle_sigma_thres:
             c_out2 = _f32(np.float32(sigma) ** 2)
             return (torch.exp(aux["logvar"]).to(torch.float32) * c_out2,
@@ -134,62 +163,189 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int):
+def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int,
+                      M=None):
     """Conjugate gradients from x0 = 0 in the update order of
     jax.scipy.sparse.linalg.cg (`kdip_tpu` guidance.py:268-311), stopping
-    once rs = |r|^2 <= tol^2 |b|^2 or after maxiter iterations. The test
-    reads rs on the host after every iteration. Returns
-    (x, rs, atol2, iterations), rs and atol2 as 0-d device tensors."""
+    once rs = |r|^2 <= tol^2 |b|^2 or after maxiter iterations. With a
+    preconditioner M, z = M(r) and gamma = <r, z>, and rs is <r, r> (one
+    more reduction an iteration). The test reads rs on the host after
+    every iteration. Returns (x, rs, atol2, iterations), rs and atol2 as
+    0-d device tensors."""
+    preconditioned = M is not None
+    M = M if preconditioned else (lambda v: v)
     bs = _vdot(b, b)
     atol2 = torch.tensor(tol, dtype=b.dtype, device=b.device).square() * bs
     x = torch.zeros_like(b)
     r = b - matvec(x)
-    p = r
-    gamma = _vdot(r, r)
+    p = z = M(r)
+    gamma = _vdot(r, z)
+    rs = _vdot(r, r) if preconditioned else gamma
     k = 0
-    while k < maxiter and bool(gamma > atol2):
+    while k < maxiter and bool(rs > atol2):
         Ap = matvec(p)
         alpha = gamma / _vdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
-        gamma_ = _vdot(r, r)
-        p = r + (gamma_ / gamma) * p
+        z = M(r)
+        gamma_ = _vdot(r, z)
+        p = z + (gamma_ / gamma) * p
         gamma = gamma_
+        rs = _vdot(r, r) if preconditioned else gamma
         k += 1
-    return x, gamma, atol2, k
+    return x, rs, atol2, k
 
 
-def _cg(matvec, b, cfg: GuidanceConfig):
+def _cg(matvec, b, cfg: GuidanceConfig, M=None):
     """CG returning (x, rel_resid, iterations) with rel_resid = |r|/|b| at
-    exit as a host float (0 for b == 0) (`kdip_tpu` guidance.py:327-352)."""
+    exit as a host float (0 for b == 0) (`kdip_tpu` guidance.py:327-352).
+    M preconditions only with cfg.cg_precondition."""
     x, rs, atol2, k = _cg_with_residual(matvec, b, cfg.cg_tol,
-                                        resolved_cg_maxiter(cfg))
+                                        resolved_cg_maxiter(cfg),
+                                        M if cfg.cg_precondition else None)
     bs = atol2 / torch.tensor(cfg.cg_tol, dtype=rs.dtype).square()
     rel = torch.sqrt(rs / bs.clamp(min=torch.finfo(rs.dtype).tiny))
     return x, float(rel), k
+
+
+def _sigma_s2(op, floor: float) -> float:
+    """float32(max(sigma_s, floor))^2, the reference's clipped noise
+    variance."""
+    return _f32(max(np.float32(op.sigma_s), np.float32(floor)) ** 2)
+
+
+def _iso_denom(s2: float, theta, scale=1.0) -> float:
+    """float32(s2 + float32(theta / scale)), as kdip_tpu's scalars round."""
+    return _f32(np.float32(s2) + np.float32(theta) / np.float32(scale))
 
 
 def inpainting_mat(op: InpaintingOperator, y, x0_mean, theta0_var, ortho_tf,
                    iso: bool, cfg: GuidanceConfig):
     """(ref: condition.py:317-348) Returns (mat, rel_resid, cg_iterations)."""
     mask = op.mask
-    sigma_s2 = _f32(max(np.float32(op.sigma_s), np.float32(0.001)) ** 2)
+    sigma_s2 = _sigma_s2(op, 0.001)
     b = mask * y - mask * x0_mean
     if iso:
-        return b / _f32(np.float32(sigma_s2) + np.float32(theta0_var)), 0.0, 0
+        return b / _iso_denom(sigma_s2, theta0_var), 0.0, 0
 
     def matvec(v):  # sigma_s2 v + mask W^-1(theta0_var W v), fused
         return ortho_tf.masked_cov_matvec(v, theta0_var, mask, sigma_s2)
 
-    return _cg(matvec, b, cfg)
+    # the closed-form isotropic solve at the mean variance
+    theta_bar = theta0_var.mean()
+
+    def iso_inverse(v):
+        return v / (sigma_s2 + mask * theta_bar)
+
+    return _cg(matvec, b, cfg, iso_inverse)
+
+
+def deblur_mat(op: BlurOperator, y, x0_mean, theta0_var, ortho_tf,
+               iso: bool, cfg: GuidanceConfig):
+    """(ref: condition.py:351-398) The FFT closed form, or CG on
+    (s2 I + A C A^T) u = y - A x0_mean, returning A^T u."""
+    s2 = _sigma_s2(op, 0.001)
+    FB, FBC, F2B = op.FB, op.FBC, op.F2B
+    if iso:
+        num = offt.fft2(y - offt.ifft2(FB * offt.fft2(x0_mean)).real)
+        mat = offt.ifft2(num / (s2 + theta0_var * F2B) * FBC).real
+        return mat, 0.0, 0
+    cov = ot_covariance(ortho_tf, theta0_var)
+    b = y - offt.ifft2(FB * offt.fft2(x0_mean)).real
+
+    def matvec(u):
+        Cu = cov(offt.ifft2(FBC * offt.fft2(u)).real)
+        return s2 * u + offt.ifft2(FB * offt.fft2(Cu)).real
+
+    # the exact FFT inverse of the isotropic system at the mean variance
+    theta_bar = theta0_var.mean()
+
+    def iso_inverse(u):
+        return offt.ifft2(offt.fft2(u) / (s2 + theta_bar * F2B)).real
+
+    u, resid, iters = _cg(matvec, b, cfg, iso_inverse)
+    return offt.ifft2(FBC * offt.fft2(u)).real, resid, iters
+
+
+def _block_mean_f2b(F2B: torch.Tensor, sf: int) -> torch.Tensor:
+    """invW: the mean of |FB|^2 over the sf x sf aliasing blocks, [h, w]
+    (ref: condition.py:409 via sr.splits; kdip_tpu guidance.py:460-463)."""
+    H, W = F2B.shape[-2:]
+    return F2B.reshape(sf, H // sf, sf, W // sf).permute(1, 3, 0, 2).reshape(
+        H // sf, W // sf, sf * sf).mean(dim=-1)
+
+
+def super_resolution_mat(op: SuperResolutionOperator, y, x0_mean, theta0_var,
+                         ortho_tf, iso: bool, cfg: GuidanceConfig):
+    """(ref: condition.py:401-439) Solves with the FFT form of A (blur, then
+    every sf-th pixel), not the bicubic forward, as the reference does;
+    sigma_s is clipped at 1e-2 here."""
+    s2 = _sigma_s2(op, 1e-2)
+    sf = op.scale_factor
+    FB, FBC = op.FB, op.FBC
+    invW = _block_mean_f2b(op.F2B, sf)
+
+    def A_fft(x):
+        return offt.downsample(offt.ifft2(FB * offt.fft2(x)), sf).real
+
+    def AT_fft(u):
+        return offt.ifft2(FBC * offt.fft2(offt.upsample(u, sf))).real
+
+    if iso:
+        num = offt.fft2(y - A_fft(x0_mean))
+        ratio = num / (s2 + theta0_var * invW)
+        mat = offt.ifft2(FBC * ratio.repeat(1, 1, sf, sf)).real
+        return mat, 0.0, 0
+    cov = ot_covariance(ortho_tf, theta0_var)
+    b = y - A_fft(x0_mean)
+
+    def matvec(u):
+        return s2 * u + A_fft(cov(AT_fft(u)))
+
+    # the exact low-resolution Fourier inverse of the isotropic system
+    theta_bar = theta0_var.mean()
+
+    def iso_inverse(u):
+        return offt.ifft2(offt.fft2(u) / (s2 + theta_bar * invW)).real
+
+    u, resid, iters = _cg(matvec, b, cfg, iso_inverse)
+    return AT_fft(u), resid, iters
+
+
+def colorization_mat(op: ColorizationOperator, y, x0_mean, theta0_var,
+                     ortho_tf, iso: bool, cfg: GuidanceConfig):
+    """A = the channel mean, so A A^T = I/3 (kdip_tpu guidance.py:496-516;
+    the reference registers no solver for it): the closed form, or CG in
+    y-space; returns A^T u."""
+    s2 = _sigma_s2(op, 0.001)
+    b = y - op.forward(x0_mean)
+    if iso:
+        return op.transpose(b / _iso_denom(s2, theta0_var, 3.0)), 0.0, 0
+    cov = ot_covariance(ortho_tf, theta0_var)
+
+    def matvec(u):
+        return s2 * u + cov(op.transpose(u)).mean(dim=1, keepdim=True)
+
+    theta_bar = theta0_var.mean()
+
+    def iso_inverse(u):
+        return u / (s2 + theta_bar / 3.0)
+
+    u, resid, iters = _cg(matvec, b, cfg, iso_inverse)
+    return op.transpose(u), resid, iters
 
 
 def mat_solver(op, y, x0_mean, theta0_var, ortho_tf, iso: bool,
                cfg: GuidanceConfig):
-    """Registry dispatch on the operator (ref: condition.py:307-314)."""
-    if op.name == "inpainting":
-        return inpainting_mat(op, y, x0_mean, theta0_var, ortho_tf, iso, cfg)
-    raise NotImplementedError(f"the {op.name!r} likelihood solve {_LATER}")
+    """Registry dispatch on the operator (ref: condition.py:307-314). Each
+    solver returns (mat, rel_resid, cg_iterations)."""
+    solver = {"inpainting": inpainting_mat, "gaussian_blur": deblur_mat,
+              "motion_blur": deblur_mat,
+              "super_resolution": super_resolution_mat,
+              "colorization": colorization_mat}.get(op.name)
+    if solver is None:
+        raise NotImplementedError(f"no mat solver for operator {op.name!r}")
+    return solver(op, y, x0_mean, theta0_var, ortho_tf, iso, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -212,19 +368,28 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
     y = measurement.y
     if cfg.guidance not in ("I", "uncond"):
         raise NotImplementedError(f"guidance {cfg.guidance!r} {_LATER}")
-    if not v2 and cfg.x0_cov_type != "convert":
+    kind = "switch" if v2 else _COV_KIND.get(cfg.x0_cov_type)
+    if kind is None:
+        raise ValueError(f"unrecognized posterior covariance type "
+                         f"{cfg.x0_cov_type!r}")
+    if kind == "iso":
         raise NotImplementedError(f"covariance {cfg.x0_cov_type!r} {_LATER}")
 
     def type_I(x, sigma):
-        """ref: condition.py:167-174. The covariance switches between the
-        CG solve with the model's covariance (below mle_sigma_thres) and the
-        closed form at mle_var(sigma) (above)."""
+        """ref: condition.py:167-174. "switch": CG with the model's
+        covariance below mle_sigma_thres, the closed form at mle_var(sigma)
+        above; "tensor" (tmpd): CG at every sigma, its variance the vjp of
+        x0_mean with ones, taken on the graph the score's vjp reuses."""
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             x0_mean, aux = uncond_pred(x, sigma)
         x0m = x0_mean.detach()
-        if sigma < cfg.mle_sigma_thres:
-            var = x0_var_fn(aux, sigma)
+
+        def mean_vjp(ct):
+            return torch.autograd.grad(x0_mean, x, grad_outputs=ct,
+                                       retain_graph=True)[0]
+        if kind == "tensor" or sigma < cfg.mle_sigma_thres:
+            var = x0_var_fn(aux, sigma, mean_vjp, x.shape)
             x0_var, theta0_var = var if v2 else (var, var)
             # ref: condition.py:170-171 - theta0_var in the ortho basis if set
             svar = x0_var if cfg.ortho_tf_type is None else theta0_var

@@ -1,17 +1,23 @@
 """Measurement operators y = A x + n (PyTorch port of `kdip_tpu/operators.py`;
 ref: condition/measurements.py). NCHW images in [-1, 1].
 
-This slice ports random/box inpainting and the gaussian noise model; the
-other registered operators raise NotImplementedError until their slice.
+Ported: denoising ("noise"), colorization, gaussian and motion blur,
+bicubic super-resolution, random/box inpainting, and the gaussian noise
+model. The nonlinear operators (phase retrieval, nonlinear blur) raise
+NotImplementedError until their slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .ops import fft as offt
+from .ops import kernels as okernels
+from .ops import resize as oresize
 
 
 @dataclasses.dataclass
@@ -45,23 +51,181 @@ def _later_slice(name: str):
     def build(**_):
         raise NotImplementedError(
             f"operator {name!r} is not ported yet: a later slice of the "
-            "PyTorch port (ROADMAP queue 1, item 3)")
+            "PyTorch port, with the nonlinear guidance (ROADMAP queue 1, "
+            "item 8)")
     register_operator(name)(build)
 
 
-for _name in ("noise", "colorization", "gaussian_blur", "motion_blur",
-              "super_resolution", "phase_retrieval", "nonlinear_blur"):
+for _name in ("phase_retrieval", "nonlinear_blur"):
     _later_slice(_name)
 
 
-class InpaintingOperator:
+def _nchw_shape_to_hw(in_shape) -> Tuple[int, int]:
+    """The reference YAMLs carry NCHW in_shape tuples (1, 3, H, W)."""
+    return int(in_shape[-2]), int(in_shape[-1])
+
+
+class LinearOperator:
+    """A linear A with its transpose; measure gives y = A x + sigma_s n."""
+
+    def __init__(self, sigma_s: float):
+        self.sigma_s = sigma_s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def transpose(self, y: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def measure(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Measurement:
+        """y = A x + sigma_s * n, with n (standard normal, A x's shape)
+        injected as `noise` or drawn from `generator`."""
+        y = self.forward(x)
+        if noise is None:
+            noise = torch.randn(y.shape, generator=generator, device=y.device,
+                                dtype=y.dtype)
+        return Measurement(y=y + self.sigma_s * noise)
+
+
+class DenoiseOperator(LinearOperator):
+    """A = I, pure denoising (ref: measurements.py:55-70)."""
+    name = "noise"
+
+    def forward(self, x):
+        return x
+
+    def transpose(self, y):
+        return y
+
+
+@register_operator("noise")
+def _build_denoise(sigma_s: float = 0.0, **_):
+    return DenoiseOperator(sigma_s=float(np.float32(sigma_s)))
+
+
+class ColorizationOperator(LinearOperator):
+    """A = the channel mean (ref: measurements.py:73-83); A^T spreads y/3."""
+    name = "colorization"
+
+    def forward(self, x):
+        return x.mean(dim=1, keepdim=True)
+
+    def transpose(self, y):
+        return y.repeat(1, 3, 1, 1) / 3.0
+
+
+@register_operator("colorization")
+def _build_colorization(sigma_s: float = 0.05, **_):
+    return ColorizationOperator(sigma_s=float(np.float32(sigma_s)))
+
+
+class _FFTKernel(LinearOperator):
+    """An operator with a circular-convolution kernel: its PSF and its
+    [H, W] OTF FB (complex64), FBC = conj(FB) and F2B = |FB|^2 (float32,
+    FB_re^2 + FB_im^2 as `kdip_tpu` computes it), on one device."""
+
+    def __init__(self, sigma_s: float, kernel: np.ndarray, hw, device):
+        super().__init__(sigma_s)
+        kernel = np.asarray(kernel, np.float32)
+        FB = offt.psf_to_otf_np(kernel, hw)
+        self.kernel = torch.from_numpy(kernel).to(device)
+        self.FB = torch.from_numpy(FB).to(device)
+        self.FBC = torch.from_numpy(np.conj(FB)).to(device)
+        re = torch.from_numpy(FB.real.astype(np.float32)).to(device)
+        im = torch.from_numpy(FB.imag.astype(np.float32)).to(device)
+        self.F2B = re ** 2 + im ** 2
+
+
+class BlurOperator(_FFTKernel):
+    """Circular-convolution blur through its OTF (ref: measurements.py:125-199,
+    the gaussian and motion variants)."""
+
+    def __init__(self, sigma_s, kernel, hw, device, name="gaussian_blur"):
+        super().__init__(sigma_s, kernel, hw, device)
+        self.name = name
+
+    def forward(self, x):
+        return offt.ifft2(self.FB * offt.fft2(x)).real
+
+    def transpose(self, y):
+        return offt.ifft2(self.FBC * offt.fft2(y)).real
+
+
+def _build_blur(name: str, in_shape=(1, 3, 256, 256), kernel_size: int = 61,
+                intensity: float = 3.0, sigma_s: float = 0.05,
+                kernel: Optional[np.ndarray] = None,
+                kernel_path: Optional[str] = None, seed: Optional[int] = None,
+                device="cuda", **_):
+    if kernel is None:
+        if kernel_path is not None:
+            kernel = okernels.load_kernel_npy(kernel_path)
+        elif name == "gaussian_blur":
+            kernel = okernels.gaussian_kernel(kernel_size, intensity)
+        else:
+            kernel = okernels.motion_blur_kernel(kernel_size, intensity,
+                                                 seed=seed)
+    return BlurOperator(float(np.float32(sigma_s)), kernel,
+                        _nchw_shape_to_hw(in_shape), device, name)
+
+
+@register_operator("gaussian_blur")
+def _build_gaussian_blur(**kw):
+    return _build_blur("gaussian_blur", **kw)
+
+
+@register_operator("motion_blur")
+def _build_motion_blur(**kw):
+    kw.setdefault("intensity", 0.5)
+    return _build_blur("motion_blur", **kw)
+
+
+class SuperResolutionOperator(_FFTKernel):
+    """A = the exact antialiased bicubic downsample (ResizeRight), with the
+    FFT kernel form (blur, then keep every sf-th pixel) for the transpose
+    and the likelihood solve (ref: measurements.py:86-122). The transpose
+    is the adjoint of the FFT form, not of the bicubic forward, as in the
+    reference (measurements.py:113-119)."""
+    name = "super_resolution"
+
+    def __init__(self, sigma_s, kernel, hw, scale_factor: int, device):
+        super().__init__(sigma_s, kernel, hw, device)
+        self.scale_factor = scale_factor
+        _, (self.Mh, self.Mw) = oresize.make_resizer(hw, 1.0 / scale_factor,
+                                                     device=device)
+
+    def forward(self, x):
+        return oresize.apply_resize(x, self.Mh, self.Mw)
+
+    def transpose(self, y):
+        return offt.ifft2(self.FBC * offt.fft2(
+            offt.upsample(y, self.scale_factor))).real
+
+
+@register_operator("super_resolution")
+def _build_super_resolution(in_shape=(1, 3, 256, 256), scale_factor: int = 4,
+                            sigma_s: float = 0.05,
+                            kernel: Optional[np.ndarray] = None,
+                            kernel_path: Optional[str] = None, device="cuda",
+                            **_):
+    sf = int(scale_factor)
+    if kernel is None:
+        if kernel_path is not None:
+            kernel = okernels.load_bicubic_mat(kernel_path, sf)
+        else:
+            kernel = okernels.bicubic_kernel(sf)
+    return SuperResolutionOperator(float(np.float32(sigma_s)), kernel,
+                                   _nchw_shape_to_hw(in_shape), sf, device)
+
+
+class InpaintingOperator(LinearOperator):
     """A = fixed masking (ref: measurements.py:202-244). The measurement
     keeps image layout: y = mask * (x + n)."""
     name = "inpainting"
 
     def __init__(self, mask: torch.Tensor, sigma_s: float):
+        super().__init__(sigma_s)
         self.mask = mask  # [1, C, H, W] in {0, 1}
-        self.sigma_s = sigma_s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.mask

@@ -47,9 +47,12 @@ class OrthoTransform:
 
 def ot_covariance(ortho_tf: OrthoTransform, variance: torch.Tensor) -> Callable:
     """C = W diag(v) W^T as a matvec closure
-    (ref: condition/utils.py:146-163 LazyOTCovariance)."""
+    (ref: condition/utils.py:146-163 LazyOTCovariance); for "dwt" the fused
+    kernel's no-mask mode, which takes contiguous tensors (x may be a
+    strided view, such as the real part of an inverse FFT)."""
     def matvec(x):
         if ortho_tf.ortho_tf_type == "dwt":
-            return _dwt.ot_matvec(x, variance, level=ortho_tf.level)
+            return _dwt.ot_matvec(x.contiguous(), variance,
+                                  level=ortho_tf.level)
         return ortho_tf.inv(ortho_tf(x) * variance)
     return matvec

@@ -100,8 +100,12 @@ def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         P.guidance.make_condition_denoiser(
             None, None, None, y, P.guidance.GuidanceConfig("dps"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        P.guidance.make_openai_uncond(
-            None, None, P.guidance.GuidanceConfig("I", "tmpd"))
+    for cov in ("pgdm", "dps", "diffpir", "analytic"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            P.guidance.make_openai_uncond(
+                None, None, P.guidance.GuidanceConfig("I", cov))
+        with pytest.raises(NotImplementedError, match="later slice"):
+            P.guidance.make_condition_denoiser(
+                None, None, None, y, P.guidance.GuidanceConfig("I", cov))
     with pytest.raises(NotImplementedError, match="later slice"):
         P.ops.transforms.OrthoTransform("dct")

@@ -85,3 +85,58 @@ def test_heun_trajectory_matches():
     r_j = float(info_j["cg_max_residual"])
     assert 0 < r_j <= 1e-4 and info_t["cg_total_iters"] > 0
     np.testing.assert_allclose(info_t["cg_max_residual"], r_j, rtol=1e-3)
+
+
+def test_tmpd_deblur_trajectory_matches():
+    """The V1 UNet with the tmpd covariance on gaussian deblur (a 9 px
+    kernel of std 3.0 at 16 px), 4 Heun steps with churn from sigma_max
+    0.7: CG at every one of the 7 guided NFEs. tmpd's "variance" is sigma^2
+    times the Jacobian's column sums, which random weights make negative
+    at some pixels (7% at sigma 0.3, 35% at sigma 2); from sigma ~2 the
+    system is indefinite and neither package's CG converges, so the
+    trajectory stays below sigma 1 (sigma_hat <= 0.99), where both do.
+    Final samples within 2e-3 and both worst CG residuals converged:
+    float32 on both sides, the variance itself a vjp whose rounding the
+    solves carry (measured: 1.3e-4 on the samples)."""
+    gcfg = dict(guidance="I", x0_cov_type="tmpd")
+    scfg = dict(SCFG, sigma_max=0.7)
+    op_cfg = dict(in_shape=(1, 3, S, S), kernel_size=9, intensity=3.0,
+                  sigma_s=0.05)
+    jm = jadm.ADMUNet(**SMALL_UNET)
+    params = random_flax_params(jm.init, jnp.zeros((1, S, S, 3)),
+                                jnp.zeros((1,)), seed=6)
+    tm = P.adm.ADMUNet(**SMALL_UNET, device="cpu")
+    tm.load_state_dict(P.weights.from_jax_params(params))
+
+    jop = jo.get_operator("gaussian_blur", **op_cfg)
+    top = P.operators.get_operator("gaussian_blur", device="cpu", **op_cfg)
+    rng = np.random.RandomState(3)
+    x0 = rng.uniform(-1, 1, (1, S, S, 3)).astype(np.float32)
+    y = (np.asarray(jop.forward(jnp.asarray(x0)))
+         + 0.05 * rng.standard_normal(x0.shape)).astype(np.float32)
+
+    jsampler = jsa.build_posterior_sampler(
+        lambda p, x, t: jm.apply({"params": p}, x,
+                                 jnp.asarray(t, jnp.float32)),
+        jd.make_diffusion(1000, "linear"), jop,
+        jg.GuidanceConfig(**gcfg, cg_warn=False), jsa.SamplerConfig(**scfg),
+        image_size=S)
+    key = jax.random.key(8)
+    out_j, info_j = jax.jit(
+        lambda p, m, k: jsampler(p, m, k, n=N, return_info=True))(
+            params, jo.Measurement(y=jnp.asarray(y)), key)
+
+    tsampler = P.sampling_api.build_posterior_sampler(
+        tm, P.diffusion.make_diffusion(1000, "linear", device="cpu"), top,
+        P.guidance.GuidanceConfig(**gcfg),
+        P.sampling_api.SamplerConfig(**scfg), image_size=S, device="cpu")
+    init, churn = _jax_draws(key)
+    out_t, info_t = tsampler(P.operators.Measurement(y=nchw(y)), n=N,
+                             init_noise=init, noise_fn=churn.__getitem__,
+                             return_info=True)
+    assert out_t.shape == (N, 3, S, S) and torch.isfinite(out_t).all()
+    np.testing.assert_allclose(nhwc(out_t), np.asarray(out_j), atol=2e-3)
+    assert 0 < float(info_j["cg_max_residual"]) <= 1e-4
+    assert 0 < info_t["cg_max_residual"] <= 1e-4
+    # every guided NFE of every sample ran at least one CG iteration
+    assert info_t["cg_total_iters"] >= N * (2 * STEPS - 1)
