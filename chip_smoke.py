@@ -16,7 +16,10 @@ each printing one JSON line:
    the autograd backward; and its fused CG matvec (s2*v + mask *
    idwt2(theta * dwt2(v))) at [4, 3, 256, 256] and [1, 3, 256, 256],
    levels 1-3, with and without the mask, theta and the mask per sample
-   and repeating over the batch, with the bit-equal share;
+   and repeating over the batch, with the bit-equal share; and the DWT
+   past the kernel's three levels (chained passes on the approximation
+   block) at [1, 3, 256, 256], levels 4-8, forward, inverse and round
+   trip, and the chained matvec at level 5 with and without the mask;
 3. slice, DWT-Var: ADMUNetV2 (bf16 torso, params pre-cast), p=0.5
    inpainting (configs/inpainting_config.yaml), Type-I guidance with the
    learned DWT covariance, mle threshold 1.0 (the CLI's --v2 default),
@@ -52,22 +55,39 @@ each printing one JSON line:
    gaussian deblur with Convert (no DWT or Winograd launch), motion deblur
    with Convert (the PSF loaded from kdip_tpu_torch/data, as the card has
    no PIL), 4x super-resolution with Convert (y is [1, 3, 64, 64]),
-   gaussian deblur with tmpd (a CG solve at every NFE), and gaussian
+   gaussian deblur with tmpd (a CG solve at every NFE; n=1), and gaussian
    deblur with DWT-Var (the fused matvec's no-mask mode, its launches the
    CG iterations plus one per solve);
 11. one tmpd and one DWT-Var gaussian-deblur guided NFE, each traced: its
    device time by kind (the FFTs are cuFFT's), the idle share and the CG
    iterations; and tmpd's variance at a few sigmas: its range and the
    share of it below 0 (the Jacobian's column sums need not be positive);
-12. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   7 and 10), its error, its time against its plain version's, its bound
-   and, for the Winograd kernels, cuDNN's direct conv, at the slice's
-   hottest shape; for the fused matvec, the six-launch chain it replaces
-   and an empty kernel's device time beside it.
+12. slice_typeII_dwt_var: the DWT-Var model with Type-II guidance, Heun-50
+   with churn, n=4; its step W^-1(W mat * theta) is one fused no-mask
+   matvec at each guided call below the threshold, so the no-mask launches
+   must equal those calls and the masked ones the CG iterations plus one
+   per solve; slice_dct_var: the DCT-Var configuration
+   (configs/test_ffhq_dct.json under --v2, Type-I, threshold 1.0), no DWT
+   launch;
+13. the baselines of quick_start/ on the V1 UNet and inpainting, n=1, as
+   their scripts run them: slice_pgdm (--ode), slice_dps (zeta 1, --ode),
+   slice_diffpir (lambda 1) and slice_analytic_I (Type-I analytic, --ode,
+   a synthetic recon_mse table): closed-form solves, no CG, no DWT;
+14. nfe_stsl: one traced stsl NFE (2 Hutchinson probes, 3 UNet forwards
+   and their backward), and one pgdm+mle NFE on each side of its
+   threshold, each with its device busy share and peak memory;
+15. the `kernels` line: per kernel, its launches in its slices (phases 3,
+   7, 10 and 12), its error, its time against its plain version's, its
+   bound and, for the Winograd kernels, cuDNN's direct conv, at the
+   slice's hottest shape; for the fused matvec, the six-launch chain it
+   replaces and an empty kernel's device time beside it.
 
-Then the card's name and power limit (nvidia-smi) and, last, the result
-line. Any failed phase raises, so the script exits non-zero and prints no
-result line; without a card, or without the package beside it, it exits 2.
+Each slice's line has its ms/NFE, samples/s, cg_max_residual, CG
+iterations, CG warnings (counted, not printed) and DWT launches; the
+`done` line has every phase's seconds. Then the card's name and power
+limit (nvidia-smi) and, last, the result line. Any failed phase raises, so
+the script exits non-zero and prints no result line; without a card, or
+without the package beside it, it exits 2.
 """
 
 from __future__ import annotations
@@ -93,6 +113,11 @@ INPAINTING = dict(name="inpainting", sigma_s=0.05,
                   mask_opt=dict(mask_type="random", mask_prob_range=(0.5, 0.5),
                                 image_size=256))
 N_SAMPLES = 4
+# tmpd's slice runs one sample: with random weights its CG runs the whole
+# 1000-iteration budget at most NFEs, so it took 209 of the script's 762 s
+# at n=4 (H100 80GB HBM3, 700 W), and the script aims at half its time
+# limit
+TMPD_N = 1
 # the motion-blur PSF of configs/motion_deblur_config.yaml, drawn with seed 0
 # where PIL is installed (tests/test_torch_fft_ops.py pins it)
 MOTION_PSF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -100,8 +125,18 @@ MOTION_PSF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "motion_ks61_i0.5_seed0.npy")
 BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
 TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
+STSL_NFE_SIGMA = 0.5            # phase 14's stsl NFE
+# slice_analytic_I's recon_mse table: the repo holds no measured one
+# (configs/test_imagenet.json names one under runs/), so a synthetic one,
+# half of mle_var at 64 log-spaced sigmas
+_MSE_SIGMAS = np.geomspace(1e-2, 80.0, 64).astype(np.float32)
+RECON_MSE = {"sigmas": _MSE_SIGMAS,
+             "mse_list": (0.5 * _MSE_SIGMAS ** 2 / (1 + _MSE_SIGMAS ** 2)
+                          ).astype(np.float32)}
 DWT_TOL = 1e-6      # kernel vs plain: the same float32 roundings (phase 2)
 DWT_EQUAL = 0.999   # least bit-equal share of the fused matvec (phase 2)
+CHAIN_LEVELS = (4, 5, 6, 7, 8)  # phase 2: chained passes, up to 1x1 at 256
+CHAIN_MATVEC_LEVEL = 5
 NFE_TOL = 1e-3      # kernel-DWT vs plain-DWT guided NFE (see phase 4)
 NFE_REPS = 5        # timed calls per NFE variant in phases 4 and 8
 # Winograd kernel vs its plain version (phase 6), per element:
@@ -278,7 +313,53 @@ def phase_kernels(dev):
                 raise AssertionError(f"level {level} {k}: |d| {v} > {tol}")
     emit({"phase": "kernels", "shape": [4, 3, 256, 256], "tol": DWT_TOL,
           "round_trip_tol": 2 * DWT_TOL, "max_abs_err": errs,
-          "ot_matvec": matvec_compare(dev)})
+          "ot_matvec": matvec_compare(dev), "chained": chain_compare(dev)})
+
+
+def chain_compare(dev):
+    """The DWT past the kernel's single-pass levels, at [1, 3, 256, 256]
+    float32: dwt2 / idwt2 at CHAIN_LEVELS (passes of up to 3 levels on the
+    approximation block) against dwt2_plain / idwt2_plain, within DWT_TOL
+    and at least DWT_EQUAL bit-equal, the round trip within 2 * DWT_TOL,
+    and the passes launched counted; then the chained ot_matvec at
+    CHAIN_MATVEC_LEVEL with and without the mask against ot_matvec_plain."""
+    import torch
+    from kdip_tpu_torch.ops import dwt as D
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(1, 3, SIZE, SIZE, generator=g, device=dev)
+    res = {}
+
+    def held(key, got, want, tol=DWT_TOL, equal_min=DWT_EQUAL):
+        err = (got - want).abs().max().item()
+        equal = (got == want).float().mean().item()
+        res[key] = {"max_abs_err": err, "bit_equal": equal}
+        if not (err <= tol and equal >= equal_min):
+            raise AssertionError(f"chained {key}: |d| {err}, {equal:.5f} "
+                                 f"bit-equal")
+    for level in CHAIN_LEVELS:
+        D.reset_launch_counts()
+        y = D.dwt2(x, level)
+        xi = D.idwt2(x, level)
+        torch.cuda.synchronize()
+        n = len(D.passes(level))
+        if D.launch_counts != {"haar_dwt2": n, "haar_idwt2": n,
+                               "haar_ot_matvec": 0}:
+            raise AssertionError(f"level {level}: launches "
+                                 f"{D.launch_counts}, expected {n} a way")
+        held(f"L{level} fwd", y, D.dwt2_plain(x, level))
+        held(f"L{level} inv", xi, D.idwt2_plain(x, level))
+        back = D.idwt2(y, level)
+        res[f"L{level} round_trip"] = (back - x).abs().max().item()
+        if not res[f"L{level} round_trip"] <= 2 * DWT_TOL:
+            raise AssertionError(f"level {level} round trip: "
+                                 f"{res[f'L{level} round_trip']}")
+    v, theta, mask, s2 = matvec_inputs(dev, 1, seed=12)
+    level = CHAIN_MATVEC_LEVEL
+    for form, (m, s) in (("masked", (mask, s2)), ("maskless", (None, 0.0))):
+        got = D.ot_matvec(v, theta, m, s, level)
+        held(f"ot_matvec L{level} {form}", got,
+             D.ot_matvec_plain(v, theta, m, s, level))
+    return res
 
 
 def matvec_inputs(dev, B, seed):
@@ -393,22 +474,27 @@ def phase_kernels_winograd(dev):
           "results": res})
 
 
+def config_path(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", name)
+
+
 def build_slice(dev, v2: bool, seed: int, winograd: bool = False,
-                op_cfg=None):
+                op_cfg=None, model_config=None):
     """(model, tables, operator, measurement) of one configuration at full
-    width: ffhq_unet (+ the out_cov head for v2), or with winograd the
-    model the CLI builds (`config.make_openai_model` on
-    configs/test_ffhq.json, winograd=True), weights from `seed`, bf16
-    torso with the norm parameters in float32; the operator from `op_cfg`
-    (default: p=0.5 inpainting), the measurement of a random image."""
+    width: ffhq_unet (+ the out_cov head for v2), or the model the CLI
+    builds from a configs/ file (`config.make_openai_model`: with winograd
+    configs/test_ffhq.json, winograd=True; else `model_config`), weights
+    from `seed`, bf16 torso with the norm parameters in float32; the
+    operator from `op_cfg` (default: p=0.5 inpainting), the measurement of
+    a random image."""
     import torch
     from kdip_tpu_torch import config, diffusion, operators, weights
     from kdip_tpu_torch.models import adm
-    if winograd:
-        cfg = config.load_config(os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "configs",
-            "test_ffhq.json"))
-        model, tables = config.make_openai_model(cfg["model"], winograd=True,
+    if winograd or model_config:
+        cfg = config.load_config(config_path(model_config or "test_ffhq.json"))
+        model, tables = config.make_openai_model(cfg["model"],
+                                                 winograd=winograd,
                                                  device=dev)
     else:
         model = adm.ffhq_unet(device=dev)
@@ -454,38 +540,53 @@ def winograd_per_nfe(model):
 
 
 def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
-              winograd: bool = False, op_cfg=None):
-    """Heun-50 with churn, n samples against one measurement; returns the
-    phase record (and the measurement pieces for phases 4, 8 and 11)."""
+              winograd: bool = False, op_cfg=None, model_config=None,
+              ode: bool = False, recon_mse=None):
+    """Heun-50 (with churn unless `ode`), n samples against one
+    measurement; returns the phase record (and the measurement pieces for
+    the NFE phases). CG's non-convergence warnings are counted, not
+    printed."""
+    import warnings
+
     import torch
     from kdip_tpu_torch import sampling_api
     from kdip_tpu_torch.ops import dwt as D
     from kdip_tpu_torch.ops import winograd as Wg
     model, tables, op, meas, x_true = build_slice(dev, v2, seed, winograd,
-                                                  op_cfg)
-    scfg = sampling_api.SamplerConfig(steps=STEPS)
+                                                  op_cfg, model_config)
+    scfg = sampling_api.SamplerConfig(steps=STEPS, ode=ode)
     sampler = sampling_api.build_posterior_sampler(
-        model, tables, op, gcfg, scfg, v2=v2, image_size=SIZE, device=dev)
+        model, tables, op, gcfg, scfg, recon_mse=recon_mse, v2=v2,
+        image_size=SIZE, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed + 200)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     D.reset_launch_counts()
     Wg.reset_launch_counts()
-    t0 = time.perf_counter()
-    out, info = sampler(meas, n=n, generator=g, return_info=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        t0 = time.perf_counter()
+        out, info = sampler(meas, n=n, generator=g, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(D.launch_counts)
+    modes = dict(D.matvec_mode_counts)
     wino_launches = dict(Wg.launch_counts)
     nfe = n * (2 * scfg.steps - 1)
     amax = out.abs().max().item()
-    rec = {"phase": name, "n": n, "steps": scfg.steps, "operator": op.name,
+    rec = {"phase": name, "guidance": gcfg.guidance,
+           "x0_cov_type": None if v2 else gcfg.x0_cov_type,
+           "ortho_tf_type": gcfg.ortho_tf_type, "v2": v2, "ode": ode,
+           "n": n, "steps": scfg.steps, "operator": op.name,
            "y_shape": list(meas.y.shape),
            "wall_s": wall, "samples_per_s": n / wall, "nfe": nfe,
            "ms_per_nfe": 1e3 * wall / nfe,
            "cg_max_residual": info["cg_max_residual"],
            "cg_total_iters": info["cg_total_iters"],
-           "dwt_launches": launches, "winograd_launches": wino_launches,
+           "cg_warnings": sum("CG did not converge" in str(w.message)
+                              for w in caught),
+           "dwt_launches": launches, "ot_matvec_by_mode": modes,
+           "winograd_launches": wino_launches,
            "max_abs_out": amax,
            "finite": bool(torch.isfinite(out).all()),
            "mse_vs_truth": ((out - x_true) ** 2).mean().item(),
@@ -857,7 +958,7 @@ def run_blur_sr_slices(dev, n: int = N_SAMPLES):
 
     tmpd_cfg = gd.GuidanceConfig("I", "tmpd")
     tmpd_rec, tmpd_parts = run_slice("slice_gaussian_deblur_tmpd", dev,
-                                     False, tmpd_cfg, seed=6, n=n,
+                                     False, tmpd_cfg, seed=6, n=TMPD_N,
                                      op_cfg=blur)
     emit(tmpd_rec)
     no_dwt(tmpd_rec)
@@ -881,22 +982,93 @@ def run_blur_sr_slices(dev, n: int = N_SAMPLES):
                       "nfe_deblur_dwt_var": (dwt_cfg, True, dwt_parts)}
 
 
-def phase_nfe_traced(name, dev, gcfg, v2: bool, parts):
-    """Phase 11: one guided NFE of a deblur slice at BLUR_NFE_SIGMA (below
-    every threshold, so a CG solve whose matvec runs four cuFFT transforms;
-    for tmpd also the ones-vjp on the retained graph). Untraced median
-    wall over NFE_REPS calls after a warm-up; then one traced call for the
-    device's busy time by kind. For tmpd, its variance's range at
+def check_no_dwt(rec) -> None:
+    if sum(rec["dwt_launches"].values()):
+        raise AssertionError(f"{rec['phase']} launched the DWT kernel: "
+                             f"{rec['dwt_launches']}")
+
+
+def run_type_ii_and_dct_slices(dev, n: int = N_SAMPLES):
+    """slice_typeII_dwt_var and slice_dct_var: the DWT-Var model with Type-II
+    guidance (its step W^-1(W mat * theta) one fused no-mask matvec at each
+    guided call below the threshold, the CG's masked matvec one launch an
+    iteration and one a solve), and the DCT-Var configuration
+    (configs/test_ffhq_dct.json under --v2: its ortho_tf_type, threshold
+    1.0, Type-I), which launches no DWT. Returns {slice: DWT launches}."""
+    from kdip_tpu_torch import config
+    from kdip_tpu_torch import guidance as gd
+    type2 = gd.GuidanceConfig("II", ortho_tf_type="dwt", mle_sigma_thres=1.0)
+    rec, _ = run_slice("slice_typeII_dwt_var", dev, True, type2, seed=8, n=n)
+    below = n * guided_nfes_below(type2.mle_sigma_thres)
+    want = {"mask": rec["cg_total_iters"] + below, "no_mask": below}
+    rec["ot_matvec_expected"] = want
+    emit(rec)
+    launches = rec["dwt_launches"]
+    if (rec["ot_matvec_by_mode"] != want or launches["haar_dwt2"]
+            or launches["haar_idwt2"]):
+        raise AssertionError(f"Type-II DWT-Var: launches {launches}, by mode "
+                             f"{rec['ot_matvec_by_mode']}, expected {want}")
+    model_cfg = config.load_config(config_path("test_ffhq_dct.json"))["model"]
+    dct = gd.GuidanceConfig("I", ortho_tf_type=model_cfg["ortho_tf_type"],
+                            mle_sigma_thres=1.0)
+    rec_dct, _ = run_slice("slice_dct_var", dev, True, dct, seed=9, n=n,
+                           model_config="test_ffhq_dct.json")
+    emit(rec_dct)
+    check_no_dwt(rec_dct)
+    if dct.ortho_tf_type != "dct" or rec_dct["cg_total_iters"] <= 0:
+        raise AssertionError(f"DCT-Var: {dct.ortho_tf_type}, "
+                             f"{rec_dct['cg_total_iters']} CG iterations")
+    return {"slice_typeII_dwt_var": launches,
+            "slice_dct_var": rec_dct["dwt_launches"]}
+
+
+def run_iso_slices(dev, n: int = 1):
+    """The baselines of quick_start/ on the V1 UNet and p=0.5 inpainting,
+    Heun-50, n samples, each as its script runs it: pgdm (--ode), dps
+    (zeta 1, --ode), diffpir (lambda 1, churn) and Type-I with the
+    analytic covariance (--ode; RECON_MSE). Every solve is the closed form:
+    no CG iteration, no DWT launch. Returns ({slice: DWT launches}, the
+    pgdm slice's pieces for nfe_stsl)."""
+    from kdip_tpu_torch import guidance as gd
+    G = gd.GuidanceConfig
+    slices = {
+        "slice_pgdm": (G("pgdm", "pgdm"), dict(ode=True)),
+        "slice_dps": (G("dps", "dps", zeta=1.0), dict(ode=True)),
+        "slice_diffpir": (G("diffpir", "diffpir", lambda_=1.0), {}),
+        "slice_analytic_I": (G("I", "analytic"),
+                             dict(ode=True, recon_mse=RECON_MSE)),
+    }
+    launches, keep = {}, None
+    for i, (name, (gcfg, kw)) in enumerate(slices.items()):
+        rec, parts = run_slice(name, dev, False, gcfg, seed=20 + i, n=n, **kw)
+        emit(rec)
+        check_no_dwt(rec)
+        if rec["cg_total_iters"] or rec["cg_max_residual"]:
+            raise AssertionError(f"{name}: a CG ran ({rec['cg_total_iters']}"
+                                 f" iterations)")
+        launches[name] = rec["dwt_launches"]
+        if keep is None:
+            keep = parts
+    return launches, keep
+
+
+def phase_nfe_traced(name, dev, gcfg, v2: bool, parts,
+                     sigma: float = BLUR_NFE_SIGMA):
+    """One guided NFE at `sigma`: phase 11's of a deblur slice at
+    BLUR_NFE_SIGMA (below every threshold, so a CG solve whose matvec runs
+    four cuFFT transforms; for tmpd also the ones-vjp on the retained
+    graph), and nfe_stsl's. Untraced median wall over NFE_REPS calls after
+    a warm-up, and the peak memory; then one traced call for the device's
+    busy time by kind. For tmpd, its variance's range at
     TMPD_THETA_SIGMAS."""
     import torch
     from kdip_tpu_torch import guidance as gd
     model, tables, op, meas, x_true = parts
-    sigma = BLUR_NFE_SIGMA
     make = gd.make_openai_v2_uncond if v2 else gd.make_openai_uncond
     uncond, var_fn = make(model, tables, gcfg)
-    den = gd.make_condition_denoiser(uncond, var_fn, op, meas, gcfg, v2=v2,
-                                     with_info=True)
     g = torch.Generator(device=dev).manual_seed(9)
+    den = gd.make_condition_denoiser(uncond, var_fn, op, meas, gcfg, v2=v2,
+                                     with_info=True, generator=g)
     x = x_true + sigma * torch.randn(x_true.shape, generator=g, device=dev)
     walls, iters = [], []
     torch.cuda.synchronize()
@@ -919,10 +1091,13 @@ def phase_nfe_traced(name, dev, gcfg, v2: bool, parts):
     kernels = device_events_by_name(trace_device_events(traced_nfe))
     busy_ms = sum(k[0] for k in kernels)
     t_med = float(np.median(walls))
-    rec = {"phase": name, "sigma": sigma, "operator": op.name,
+    rec = {"phase": name, "guidance": gcfg.guidance, "sigma": sigma,
+           "operator": op.name,
            "cg_iters": iters, "cg_resid": info["cg_resid"],
            "median_wall_ms": t_med, "reps": NFE_REPS, "peak_mem_gib": peak,
            "device_busy_ms": busy_ms if kernels else "not measured",
+           "device_busy_share": busy_ms / t_med if kernels
+           else "not measured",
            "device_ms_by_kind": device_ms_by_kind(kernels),
            "fft_launches": sum(n for _, n, k in kernels if "fft" in k),
            "device_idle_share": (1 - busy_ms / t_med) if kernels
@@ -1208,13 +1383,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    seconds = {}
 
-    phase_device_and_build()
-    phase_kernels(dev)
+    def timed(name, fn, *args, **kw):
+        """fn(*args, **kw), its seconds recorded under `name`."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("device_and_build", phase_device_and_build)
+    timed("kernels", phase_kernels, dev)
 
     dwt_cfg = gd.GuidanceConfig("I", ortho_tf_type="dwt", mle_sigma_thres=1.0)
-    rec, parts = run_slice("slice_dwt_var", dev, True, dwt_cfg, seed=0,
-                           n=N_SAMPLES)
+    rec, parts = timed("slice_dwt_var", run_slice, "slice_dwt_var", dev, True,
+                       dwt_cfg, seed=0, n=N_SAMPLES)
     emit(rec)
     launches = rec["dwt_launches"]
     # one matvec per CG iteration, and the initial residual's of each solve
@@ -1226,43 +1409,66 @@ def main() -> int:
         raise AssertionError(f"DWT-Var: {launches['haar_ot_matvec']} fused "
                              f"matvec launches, expected {want}")
 
-    phase_nfe_compare(dev, dwt_cfg, parts)
+    timed("nfe_kernel_vs_plain_dwt", phase_nfe_compare, dev, dwt_cfg, parts)
     del parts
     torch.cuda.empty_cache()
 
     convert_cfg = gd.GuidanceConfig("I", "convert")
-    rec, _ = run_slice("slice_convert", dev, False, convert_cfg, seed=1,
-                       n=N_SAMPLES)
+    rec, _ = timed("slice_convert", run_slice, "slice_convert", dev, False,
+                   convert_cfg, seed=1, n=N_SAMPLES)
     emit(rec)
 
-    phase_kernels_winograd(dev)
-    rec, parts = run_slice("slice_convert_winograd", dev, False, convert_cfg,
-                           seed=2, n=N_SAMPLES, winograd=True)
+    timed("kernels_winograd", phase_kernels_winograd, dev)
+    rec, parts = timed("slice_convert_winograd", run_slice,
+                       "slice_convert_winograd", dev, False, convert_cfg,
+                       seed=2, n=N_SAMPLES, winograd=True)
     emit(rec)
     wino_launches = rec["winograd_launches"]
     if not all(v > 0 for v in wino_launches.values()):
         raise AssertionError(f"the Winograd run launched no kernel: "
                              f"{wino_launches}")
-    phase_nfe_winograd(dev, convert_cfg, parts)
-    phase_winograd_shapes(dev, winograd_launch_shapes(parts[0], dev))
+    timed("nfe_winograd", phase_nfe_winograd, dev, convert_cfg, parts)
+    timed("winograd_shapes", lambda: phase_winograd_shapes(
+        dev, winograd_launch_shapes(parts[0], dev)))
     del parts
     torch.cuda.empty_cache()
 
-    deblur_launches, nfes = run_blur_sr_slices(dev)
+    deblur_launches, nfes = timed("blur_sr_slices", run_blur_sr_slices, dev)
     for name, (gcfg, v2, parts) in nfes.items():
-        phase_nfe_traced(name, dev, gcfg, v2, parts)
+        timed(name, phase_nfe_traced, name, dev, gcfg, v2, parts)
     del nfes, parts
     torch.cuda.empty_cache()
 
     by_slice = {"slice_dwt_var": launches,
                 "slice_gaussian_deblur_dwt_var": deblur_launches}
-    rows = kernel_rows(dev, {k: launches[k] + deblur_launches[k]
-                             for k in launches})
+    by_slice.update(timed("type_ii_and_dct_slices",
+                          run_type_ii_and_dct_slices, dev))
+    iso_launches, parts = timed("iso_slices", run_iso_slices, dev)
+    by_slice.update(iso_launches)
+    G = gd.GuidanceConfig
+    stsl = G("stsl", "pgdm", zeta=1.0, eta=1.0, num_hutchinson_samples=2)
+    timed("nfe_stsl", phase_nfe_traced, "nfe_stsl", dev, stsl, False, parts,
+          sigma=STSL_NFE_SIGMA)
+    mle = G("pgdm+mle", "convert")
+    for side, sigma in (("below", 0.5 * mle.mle_sigma_thres),
+                        ("above", 2.0 * mle.mle_sigma_thres)):
+        timed(f"nfe_pgdm+mle_{side}", phase_nfe_traced,
+              f"nfe_pgdm+mle_{side}", dev, mle, False, parts, sigma=sigma)
+    del parts
+    torch.cuda.empty_cache()
+
+    rows = timed("kernel_rows", kernel_rows, dev, {
+        k: sum(c[k] for c in by_slice.values()) for k in launches})
     for row in rows:
         row["launches_by_slice"] = {s: c[row["name"]]
                                     for s, c in by_slice.items()}
-    emit({"kernels": rows + wino_kernel_rows(dev, wino_launches)})
-    emit({"phase": "done", "total_s": time.perf_counter() - t_start})
+    wrows = timed("wino_kernel_rows", wino_kernel_rows, dev, wino_launches)
+    for row in wrows:
+        row["launches_by_slice"] = {"slice_convert_winograd":
+                                    wino_launches[row["name"]]}
+    emit({"kernels": rows + wrows})
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start,
+          "phase_seconds": seconds})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,26 +1,35 @@
 """Conditional denoising E[x0 | xt, y] (PyTorch port of `kdip_tpu/guidance.py`;
 ref: condition/condition.py).
 
-Ported: Type-I guidance (and the unguided "uncond" mode) for the OpenAI
-ADM models, with the Convert and tmpd covariances (V1) and the learned
-DWT/spatial covariance heads (V2), and the likelihood solves of the four
-linear operators: inpainting, deblurring (gaussian, motion), bicubic
-super-resolution and colorization.
+Ported: the guidance modes uncond, I, II, dps, pgdm, diffpir, stsl and
+dps+mle / pgdm+mle / stsl+mle for the OpenAI ADM models, with the Convert,
+tmpd, analytic, pgdm, dps and diffpir covariances (V1) and the learned
+DWT/DCT/spatial covariance heads (V2), and the likelihood solves of the
+four linear operators: inpainting, deblurring (gaussian, motion), bicubic
+super-resolution and colorization. autoI is a later slice.
 
 Differences of form from `kdip_tpu`, not of result:
-- sigma is a host-side float, so the mle-threshold switch
-  (`lax.cond(sigma < mle_sigma_thres)`, guidance.py:637) is a Python `if`,
-  and the closed-form branch never computes the covariance tensors;
+- sigma is a host-side float, so the mle-threshold switches
+  (`lax.cond(sigma < mle_sigma_thres)`, guidance.py:637, 821) are Python
+  `if`s, and the closed-form branch never computes the covariance tensors;
 - the CG loop runs on the host, testing its stopping rule after every
-  iteration, which reads the residual back from the device;
+  iteration, which reads the residual back from the device; a solve that
+  ends above tolerance warns (cg_warn) from the same read;
 - the likelihood score is `torch.autograd.grad` of x0_mean at x, and
-  tmpd's variance a first `autograd.grad` on the retained graph.
+  tmpd's variance a first `autograd.grad` on the retained graph; where no
+  vjp is needed (Type-II but with tmpd, diffpir, uncond) the UNet runs
+  under `torch.no_grad()`;
+- Type-II's step W^-1(W mat * svar) with a scalar svar is mat * svar
+  (the orthonormal transform cancels);
+- stsl's Hutchinson probes are injected (`probes=`) or drawn from a
+  torch.Generator, not from jax's fold_in(key, i).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import warnings
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -39,9 +48,12 @@ _LATER = "is not ported yet: a later slice of the PyTorch port (ROADMAP queue 1)
 # the reference's theta0_var.numel() == 1 dispatch): "switch" - CG with the
 # covariance below mle_sigma_thres, the closed form at mle_var above (Convert
 # and the V2 heads); "tensor" - CG at every sigma (tmpd); "iso" - always the
-# closed form (the modes of ROADMAP queue 1 item 8).
+# closed form at a scalar variance (pgdm, dps, diffpir, and analytic's
+# per-sigma table entry).
 _COV_KIND = {"convert": "switch", "tmpd": "tensor", "pgdm": "iso",
              "dps": "iso", "diffpir": "iso", "analytic": "iso"}
+GUIDANCE_MODES = ("uncond", "I", "II", "dps", "pgdm", "diffpir", "stsl")
+MLE_MODES = ("dps+mle", "pgdm+mle", "stsl+mle")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,14 +64,23 @@ class GuidanceConfig:
     |r|^2 <= cg_tol^2 |b|^2. cg_precondition preconditions CG with the
     closed-form isotropic solve at the mean variance: fewer iterations on
     near-isotropic covariances, harmful on wide-range ones such as tmpd's
-    (kdip_tpu guidance.py:65-74); off, as in the reference's scipy CG."""
+    (kdip_tpu guidance.py:65-74); off, as in the reference's scipy CG.
+    cg_warn warns (RuntimeWarning) when a solve exits above tolerance, as
+    the reference's scipy CG does (condition.py:344-345). zeta (dps, stsl),
+    lambda_ (diffpir), eta and num_hutchinson_samples (stsl) are the
+    modes' step sizes and probe count."""
     guidance: str = "I"
     x0_cov_type: str = "convert"
     mle_sigma_thres: float = 0.2
+    zeta: Optional[float] = None
+    lambda_: Optional[float] = None
+    eta: Optional[float] = None
+    num_hutchinson_samples: Optional[int] = None
     ortho_tf_type: Optional[str] = None
     cg_tol: float = 1e-4
     cg_maxiter: Optional[int] = None
     cg_precondition: bool = False
+    cg_warn: bool = True
 
 
 def resolved_cg_maxiter(cfg: GuidanceConfig) -> int:
@@ -87,8 +108,16 @@ def _model_t(log_sigmas_host: torch.Tensor, sigma: float) -> torch.Tensor:
 # Unconditional posterior moments for the OpenAI (ADM) model family
 # ---------------------------------------------------------------------------
 
+def _host_f32(a) -> np.ndarray:
+    """A table (numpy, list or tensor on any device) as float32 numpy."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu()
+    return np.asarray(a, np.float32)
+
+
 def make_openai_uncond(model_apply: Callable, tables: diff.DiffusionTables,
-                       cfg: GuidanceConfig):
+                       cfg: GuidanceConfig,
+                       recon_mse: Optional[Dict[str, object]] = None):
     """uncond_pred of ConditionOpenAIDenoiser (ref: condition.py:231-274).
 
     model_apply(x_scaled, t_int) -> the raw ADMUNet output (eps + variance
@@ -97,13 +126,21 @@ def make_openai_uncond(model_apply: Callable, tables: diff.DiffusionTables,
     mean_vjp, x_shape) -> for "convert" the Eq.22 covariance below
     mle_sigma_thres, mle_var(sigma) above; for "tmpd" sigma^2 times the
     vjp of x0_mean with a ones cotangent (ref: condition.py:268-269),
-    `mean_vjp(ct)` being the caller's vjp of x0_mean at x."""
-    if cfg.x0_cov_type not in _COV_KIND:
-        raise ValueError(f"unrecognized posterior covariance type "
-                         f"{cfg.x0_cov_type!r}")
-    if _COV_KIND[cfg.x0_cov_type] == "iso":
-        raise NotImplementedError(f"covariance {cfg.x0_cov_type!r} {_LATER},"
-                                  f" with its guidance modes (item 8)")
+    `mean_vjp(ct)` being the caller's vjp of x0_mean at x; for the iso
+    covariances a host float: "pgdm" mle_var(sigma), "dps" 0, "diffpir"
+    sigma^2 / lambda_, "analytic" below mle_sigma_thres the
+    recon_mse["mse_list"] entry at the nearest recon_mse["sigmas"], above
+    it mle_var(sigma) (`kdip_tpu` guidance.py:168-191)."""
+    cov = cfg.x0_cov_type
+    if cov not in _COV_KIND:
+        raise ValueError(f"unrecognized posterior covariance type {cov!r}")
+    if cov == "analytic":
+        if recon_mse is None:
+            raise ValueError("the analytic covariance needs recon_mse")
+        mse_sigmas = _host_f32(recon_mse["sigmas"])
+        mse_list = _host_f32(recon_mse["mse_list"])
+    if cov == "diffpir" and cfg.lambda_ is None:
+        raise ValueError("the diffpir covariance needs lambda_")
     log_sigmas = tables.log_sigmas.cpu()
 
     def uncond_pred(x, sigma):
@@ -117,12 +154,21 @@ def make_openai_uncond(model_apply: Callable, tables: diff.DiffusionTables,
         return out["pred_xstart"], {"variance": out["variance"], "t": t_b}
 
     def x0_var_fn(aux, sigma, mean_vjp=None, x_shape=None):
-        if cfg.x0_cov_type == "tmpd":
+        if cov == "tmpd":
             ones = torch.ones(x_shape, device=aux["t"].device)
             return mean_vjp(ones) * _f32(np.float32(sigma) ** 2)
-        if sigma < cfg.mle_sigma_thres:
-            return diff.convert_x0_var(tables, aux["variance"], aux["t"])
-        return mle_var(sigma)
+        if cov == "pgdm":
+            return mle_var(sigma)
+        if cov == "dps":
+            return 0.0
+        if cov == "diffpir":
+            return _f32(np.float32(sigma) ** 2 / np.float32(cfg.lambda_))
+        if sigma >= cfg.mle_sigma_thres:
+            return mle_var(sigma)
+        if cov == "analytic":
+            idx = np.argmin(np.abs(mse_sigmas - np.float32(sigma)))
+            return float(mse_list[idx])
+        return diff.convert_x0_var(tables, aux["variance"], aux["t"])
 
     return uncond_pred, x0_var_fn
 
@@ -199,13 +245,20 @@ def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int,
 def _cg(matvec, b, cfg: GuidanceConfig, M=None):
     """CG returning (x, rel_resid, iterations) with rel_resid = |r|/|b| at
     exit as a host float (0 for b == 0) (`kdip_tpu` guidance.py:327-352).
-    M preconditions only with cfg.cg_precondition."""
-    x, rs, atol2, k = _cg_with_residual(matvec, b, cfg.cg_tol,
-                                        resolved_cg_maxiter(cfg),
+    M preconditions only with cfg.cg_precondition. With cfg.cg_warn a
+    solve that exits above tolerance warns with `kdip_tpu`'s message; the
+    test rides on the one host read of the residual."""
+    maxiter = resolved_cg_maxiter(cfg)
+    x, rs, atol2, k = _cg_with_residual(matvec, b, cfg.cg_tol, maxiter,
                                         M if cfg.cg_precondition else None)
     bs = atol2 / torch.tensor(cfg.cg_tol, dtype=rs.dtype).square()
     rel = torch.sqrt(rs / bs.clamp(min=torch.finfo(rs.dtype).tiny))
-    return x, float(rel), k
+    rel, above = torch.stack([rel, (rs > atol2).to(rel.dtype)]).tolist()
+    if cfg.cg_warn and above:
+        warnings.warn(f"CG did not converge in {maxiter} iters: "
+                      f"|r|/|b| = {np.float32(rel)}", RuntimeWarning,
+                      stacklevel=2)
+    return x, rel, k
 
 
 def _sigma_s2(op, floor: float) -> float:
@@ -356,59 +409,169 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
                             operator, measurement: Measurement,
                             cfg: GuidanceConfig, v2: bool = False,
                             with_info: bool = False,
-                            ortho_tf: Optional[OrthoTransform] = None):
-    """Builds `denoise(x, sigma) -> hat_x0` (ref: condition.py:83-131) for
-    guidance "I" and "uncond"; sigma is a host float. With with_info it
-    returns (hat_x0, info): info["cg_resid"] is the CG relative residual
-    |r|/|b| at exit (0.0 for closed-form solves), info["cg_iters"] its
-    iteration count. `ortho_tf` replaces the transform named by
-    cfg.ortho_tf_type (a test's fake)."""
+                            ortho_tf: Optional[OrthoTransform] = None,
+                            generator: Optional[torch.Generator] = None):
+    """Builds `denoise(x, sigma, probes=None) -> hat_x0` for every guidance
+    mode of GUIDANCE_MODES and MLE_MODES (ref: condition.py:83-131,
+    `kdip_tpu` guidance.py:561-829); sigma is a host float. With with_info
+    it returns (hat_x0, info): info["cg_resid"] is the CG relative
+    residual |r|/|b| at exit (0.0 for closed-form and solver-free modes),
+    info["cg_iters"] its iteration count. `ortho_tf` replaces the transform
+    named by cfg.ortho_tf_type (a test's fake).
+
+    stsl's Hutchinson probes (num_hutchinson_samples tensors broadcastable
+    to x) come from the call's `probes`, else they are standard normal
+    draws of x's shape from `generator`."""
     if ortho_tf is None:
         ortho_tf = OrthoTransform(cfg.ortho_tf_type)
     y = measurement.y
-    if cfg.guidance not in ("I", "uncond"):
-        raise NotImplementedError(f"guidance {cfg.guidance!r} {_LATER}")
+    guidance = cfg.guidance
+    if guidance == "autoI":
+        raise NotImplementedError(f"guidance {guidance!r} {_LATER}")
+    if guidance not in GUIDANCE_MODES + MLE_MODES:
+        raise ValueError(f"Invalid guidance type: {guidance!r}.")
     kind = "switch" if v2 else _COV_KIND.get(cfg.x0_cov_type)
     if kind is None:
         raise ValueError(f"unrecognized posterior covariance type "
                          f"{cfg.x0_cov_type!r}")
-    if kind == "iso":
-        raise NotImplementedError(f"covariance {cfg.x0_cov_type!r} {_LATER}")
+    base = guidance.split("+")[0]
+    need = {"dps": ("zeta",), "diffpir": ("lambda_",),
+            "stsl": ("zeta", "eta", "num_hutchinson_samples")}.get(base, ())
+    missing = [f for f in need if getattr(cfg, f) is None]
+    if missing:
+        raise ValueError(f"guidance {guidance!r} needs {missing}")
+    thres = cfg.mle_sigma_thres
 
-    def type_I(x, sigma):
-        """ref: condition.py:167-174. "switch": CG with the model's
-        covariance below mle_sigma_thres, the closed form at mle_var(sigma)
-        above; "tensor" (tmpd): CG at every sigma, its variance the vjp of
-        x0_mean with ones, taken on the graph the score's vjp reuses."""
+    def moments(x, sigma, grad: bool):
+        """(x0_mean detached, aux, mean_vjp): mean_vjp(ct, retain) is the
+        vjp of x0_mean at x, None where grad is False (the forward then
+        runs under no_grad)."""
+        if not grad:
+            with torch.no_grad():
+                x0_mean, aux = uncond_pred(x, sigma)
+            return x0_mean, aux, None
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             x0_mean, aux = uncond_pred(x, sigma)
-        x0m = x0_mean.detach()
 
-        def mean_vjp(ct):
+        def mean_vjp(ct, retain=True):
             return torch.autograd.grad(x0_mean, x, grad_outputs=ct,
-                                       retain_graph=True)[0]
-        if kind == "tensor" or sigma < cfg.mle_sigma_thres:
-            var = x0_var_fn(aux, sigma, mean_vjp, x.shape)
-            x0_var, theta0_var = var if v2 else (var, var)
-            # ref: condition.py:170-171 - theta0_var in the ortho basis if set
-            svar = x0_var if cfg.ortho_tf_type is None else theta0_var
-            mat, resid, iters = mat_solver(operator, y, x0m, svar.detach(),
-                                           ortho_tf, False, cfg)
-        else:
-            mat, resid, iters = mat_solver(operator, y, x0m, mle_var(sigma),
-                                           ortho_tf, True, cfg)
-        score, = torch.autograd.grad(x0_mean, x, grad_outputs=mat)
-        return x0m + _f32(np.float32(sigma) ** 2) * score, resid, iters
+                                       retain_graph=retain)[0]
+        return x0_mean.detach(), aux, mean_vjp
 
-    def uncond(x, sigma):
-        with torch.no_grad():
-            return uncond_pred(x, sigma)[0], 0.0, 0
+    def solver_var(aux, sigma, mean_vjp, x_shape):
+        """The variance the solve takes (ref: condition.py:170-171):
+        theta0_var in the ortho basis if set, else x0_var; a host float
+        for the iso covariances and above mle_sigma_thres."""
+        var = x0_var_fn(aux, sigma, mean_vjp, x_shape)
+        x0_var, theta0_var = var if v2 else (var, var)
+        svar = x0_var if cfg.ortho_tf_type is None else theta0_var
+        return svar.detach() if torch.is_tensor(svar) else svar
 
-    fn = type_I if cfg.guidance == "I" else uncond
+    def solve(x0m, svar, sigma):
+        """"iso": the closed form (a tensor variance reduced to its mean);
+        "tensor": CG; "switch": CG below mle_sigma_thres, the closed form
+        at mle_var above (`kdip_tpu` guidance.py:616-638)."""
+        if kind == "iso":
+            sv = float(svar.mean()) if torch.is_tensor(svar) else svar
+            return mat_solver(operator, y, x0m, sv, ortho_tf, True, cfg)
+        if kind == "tensor" or sigma < thres:
+            return mat_solver(operator, y, x0m, svar, ortho_tf, False, cfg)
+        return mat_solver(operator, y, x0m, mle_var(sigma), ortho_tf, True,
+                          cfg)
 
-    def denoise(x, sigma):
-        out, resid, iters = fn(x, float(sigma))
+    def s2(sigma):
+        return _f32(np.float32(sigma) ** 2)
+
+    def type_I(x, sigma, _):
+        """ref: condition.py:167-174. tmpd's variance is the vjp of x0_mean
+        with ones, taken on the graph the score's vjp reuses."""
+        x0m, aux, mean_vjp = moments(x, sigma, True)
+        mat, resid, iters = solve(x0m, solver_var(aux, sigma, mean_vjp,
+                                                  x.shape), sigma)
+        return x0m + s2(sigma) * mean_vjp(mat, False), resid, iters
+
+    def type_II(x, sigma, _):
+        """ref: condition.py:176-183: x0_mean + W^-1(W mat * svar). Only
+        tmpd's variance needs the vjp. A tensor svar runs ot_covariance
+        (for "dwt" one fused no-mask launch); with a scalar the transform
+        cancels, mat * svar."""
+        x0m, aux, mean_vjp = moments(x, sigma, kind == "tensor")
+        svar = solver_var(aux, sigma, mean_vjp, x.shape)
+        mat, resid, iters = solve(x0m, svar, sigma)
+        step = (ot_covariance(ortho_tf, svar)(mat) if torch.is_tensor(svar)
+                else mat * svar)
+        return x0m + step, resid, iters
+
+    def dps(x, sigma, _):
+        """ref: condition.py:140-148: the gradient of -|y - A x0_mean| (the
+        norm over the whole call) through the operator and the UNet,
+        times zeta."""
+        x0m, _, mean_vjp = moments(x, sigma, True)
+        x0d = x0m.requires_grad_(True)
+        with torch.enable_grad():
+            norm = torch.linalg.vector_norm(y - operator.forward(x0d))
+        g, = torch.autograd.grad(norm, x0d)
+        score = mean_vjp(-g, False) * cfg.zeta
+        return x0m.detach() + s2(sigma) * score, 0.0, 0
+
+    def pgdm(x, sigma, _):
+        """ref: condition.py:150-157: the closed form at mle_var(sigma),
+        the vjp scaled by it."""
+        x0m, _, mean_vjp = moments(x, sigma, True)
+        x0_var = mle_var(sigma)
+        mat, resid, iters = mat_solver(operator, y, x0m, x0_var, ortho_tf,
+                                       True, cfg)
+        return (x0m + s2(sigma) * (mean_vjp(mat, False) * x0_var),
+                resid, iters)
+
+    def diffpir(x, sigma, _):
+        """ref: condition.py:159-165: no vjp; x0_mean + mat * sigma^2 /
+        lambda_."""
+        x0m, _, _ = moments(x, sigma, False)
+        x0_var = _f32(np.float32(sigma) ** 2 / np.float32(cfg.lambda_))
+        mat, resid, iters = mat_solver(operator, y, x0m, x0_var, ortho_tf,
+                                       True, cfg)
+        return x0m + mat * x0_var, resid, iters
+
+    def stsl(x, sigma, eps_list):
+        """ref: condition.py:185-208: the gradient at x of zeta *
+        (-|y - A x0_mean|) + eta / x.numel() * the mean over the probes
+        of -sigma^2 <x0_mean(x + eps) - x0_mean(x), eps>, through
+        1 + num_hutchinson_samples UNet forwards."""
+        if eps_list is None:
+            eps_list = [torch.randn(x.shape, generator=generator,
+                                    device=x.device, dtype=x.dtype)
+                        for _ in range(cfg.num_hutchinson_samples)]
+        if len(eps_list) != cfg.num_hutchinson_samples:
+            raise ValueError(f"{len(eps_list)} probes, num_hutchinson_"
+                             f"samples {cfg.num_hutchinson_samples}")
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            x0_mean, _ = uncond_pred(x, sigma)
+            first = -torch.linalg.vector_norm(y - operator.forward(x0_mean))
+            second = 0.0
+            for eps in eps_list:
+                inc, _ = uncond_pred(x + eps, sigma)
+                second = second - torch.sum((inc - x0_mean) * eps) * s2(sigma)
+            second = second / cfg.num_hutchinson_samples
+            loss = cfg.zeta * first + (cfg.eta / x.numel()) * second
+        g, = torch.autograd.grad(loss, x)
+        return x0_mean.detach() + s2(sigma) * g, 0.0, 0
+
+    def uncond(x, sigma, _):
+        return moments(x, sigma, False)[0], 0.0, 0
+
+    impls = {"uncond": uncond, "I": type_I, "II": type_II, "dps": dps,
+             "pgdm": pgdm, "diffpir": diffpir, "stsl": stsl}
+
+    def denoise(x, sigma, probes=None):
+        """`probes`: stsl's Hutchinson probes for this call (see above)."""
+        sigma = float(sigma)
+        # the +mle modes: Type-I below mle_sigma_thres, the base mode above
+        fn = (type_I if guidance in MLE_MODES and sigma < thres
+              else impls[base])
+        out, resid, iters = fn(x, sigma, probes)
         out = out.clamp(-1, 1)
         if with_info:
             return out, {"cg_resid": resid, "cg_iters": iters}

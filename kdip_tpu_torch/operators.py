@@ -2,8 +2,10 @@
 ref: condition/measurements.py). NCHW images in [-1, 1].
 
 Ported: denoising ("noise"), colorization, gaussian and motion blur,
-bicubic super-resolution, random/box inpainting, and the gaussian noise
-model. The nonlinear operators (phase retrieval, nonlinear blur) raise
+bicubic super-resolution, random/box inpainting, and the clean and
+gaussian noise models. Every operator's forward is differentiable (dps and
+stsl guidance differentiate it). The nonlinear operators (phase
+retrieval, nonlinear blur) and the poisson noise raise
 NotImplementedError until their slice.
 """
 
@@ -47,17 +49,16 @@ def get_operator(name: str, device="cuda", **kwargs):
     return __OPERATOR__[name](device=device, **kwargs)
 
 
-def _later_slice(name: str):
-    def build(**_):
+def _later_slice(what: str):
+    def build(*_, **__):
         raise NotImplementedError(
-            f"operator {name!r} is not ported yet: a later slice of the "
-            "PyTorch port, with the nonlinear guidance (ROADMAP queue 1, "
-            "item 8)")
-    register_operator(name)(build)
+            f"{what} is not ported yet: a later slice of the PyTorch port, "
+            "with the nonlinear guidance (ROADMAP queue 1, item 8)")
+    return build
 
 
 for _name in ("phase_retrieval", "nonlinear_blur"):
-    _later_slice(_name)
+    register_operator(_name)(_later_slice(f"operator {_name!r}"))
 
 
 def _nchw_shape_to_hw(in_shape) -> Tuple[int, int]:
@@ -316,6 +317,9 @@ def get_noise(name: str, **kwargs):
 @register_noise("clean")
 def clean_noise(data, noise=None, generator=None):
     return data
+
+
+register_noise("poisson")(_later_slice("noise model 'poisson'"))
 
 
 @register_noise("gaussian")

@@ -11,6 +11,12 @@ splits into [[ll, lh], [hl, hh]] quadrants.
 A CUDA tensor goes to the kernel, or the call raises; a CPU tensor goes to
 the plain version. The transform is orthonormal, so each direction's
 backward is the other direction.
+
+The kernel takes levels 1..MAX_LEVEL in one pass. `dwt2`, `idwt2` and
+`ot_matvec` take any level whose 2^level divides H and W: past MAX_LEVEL
+they chain passes on the top-left approximation block, copied out
+contiguous and written back (each level maps that block alone, so the
+chain is bit-equal to the plain version).
 """
 
 from __future__ import annotations
@@ -27,15 +33,38 @@ import torch
 # kernel's constant: the kernel and this version agree bit for bit.
 _INV_SQRT2 = 1 / math.sqrt(2.0)
 _SOURCE = "haar_dwt.cu"
-MAX_LEVEL = 3  # the kernel instantiates levels 1..3
+MAX_LEVEL = 3  # the kernel instantiates levels 1..3 (one pass)
 
-# kernel launches since the last reset_launch_counts(), by kernel name
+# kernel launches since the last reset_launch_counts(), by kernel name, and
+# the fused matvec's launches by mode (with a mask: the inpainting CG's
+# matvec; without: ot_covariance)
 launch_counts = {"haar_dwt2": 0, "haar_idwt2": 0, "haar_ot_matvec": 0}
+matvec_mode_counts = {"mask": 0, "no_mask": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, matvec_mode_counts):
+        for k in counts:
+            counts[k] = 0
+
+
+def check_level(H: int, W: int, level: int, max_level: Optional[int] = None
+                ) -> None:
+    """Raises unless level >= 1 (and <= max_level where given) and 2^level
+    divides H and W."""
+    top = "" if max_level is None else f"..{max_level}"
+    if level < 1 or (max_level is not None and level > max_level):
+        raise ValueError(f"level must be in 1{top}, got {level}")
+    if H % (1 << level) or W % (1 << level):
+        raise ValueError(f"H, W = {H}, {W} not divisible by 2^{level}")
+
+
+def passes(level: int) -> Tuple[Tuple[int, int], ...]:
+    """The kernel passes of a `level`-level transform, forward order:
+    (levels already done, levels of this pass); each pass maps the
+    top-left (H >> done, W >> done) block."""
+    return tuple((done, min(level - done, MAX_LEVEL))
+                 for done in range(0, level, MAX_LEVEL))
 
 
 # ---------------------------------------------------------------------------
@@ -207,11 +236,8 @@ def haar_dwt2_cuda(x: torch.Tensor, level: int, inverse: bool) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("haar_dwt2_cuda takes a contiguous tensor")
-    if not 1 <= level <= MAX_LEVEL:
-        raise ValueError(f"level must be in 1..{MAX_LEVEL}, got {level}")
     B, C, H, W = x.shape
-    if H % (1 << level) or W % (1 << level):
-        raise ValueError(f"H, W = {H}, {W} not divisible by 2^{level}")
+    check_level(H, W, level, MAX_LEVEL)
     tf, _ = _kernels()
     x32 = x if x.dtype == torch.float32 else x.to(torch.float32)
     y = torch.empty_like(x32)
@@ -223,19 +249,17 @@ def haar_dwt2_cuda(x: torch.Tensor, level: int, inverse: bool) -> torch.Tensor:
 
 
 def _matvec_planes(v: torch.Tensor, theta: torch.Tensor,
-                   mask: Optional[torch.Tensor], s2: float,
-                   level: int) -> Tuple[int, int, int]:
+                   mask: Optional[torch.Tensor], s2: float, level: int,
+                   max_level: Optional[int] = MAX_LEVEL
+                   ) -> Tuple[int, int, int]:
     """Checks the matvec's arguments; returns (v's planes, theta's planes,
     the mask's planes). theta and the mask have v's shape or repeat over
     its batch ([1, C, H, W])."""
-    if not 1 <= level <= MAX_LEVEL:
-        raise ValueError(f"level must be in 1..{MAX_LEVEL}, got {level}")
     if v.ndim != 4:
         raise ValueError(f"expected NCHW v, got {tuple(v.shape)}")
     shape = v.shape
     B, C, H, W = shape
-    if H % (1 << level) or W % (1 << level):
-        raise ValueError(f"H, W = {H}, {W} not divisible by 2^{level}")
+    check_level(H, W, level, max_level)
     if mask is None and s2 != 0:
         raise ValueError("s2 * v is added only with a mask")
     planes = [0, 0]
@@ -282,6 +306,7 @@ def haar_ot_matvec_cuda(v: torch.Tensor, theta: torch.Tensor,
     _launch(mv, v.device, *ptrs[:3], s2, ptrs[3], planes, H, W, level,
             tplanes, mplanes, *_config(planes, H, W, ptrs))
     launch_counts["haar_ot_matvec"] += 1
+    matvec_mode_counts["no_mask" if mask is None else "mask"] += 1
     return y
 
 
@@ -289,18 +314,45 @@ def ot_matvec(v: torch.Tensor, theta: torch.Tensor,
               mask: Optional[torch.Tensor] = None, s2: float = 0.0,
               level: int = 3) -> torch.Tensor:
     """s2 * v + mask * idwt2(theta * dwt2(v)) (without a mask,
-    idwt2(theta * dwt2(v))): DWT-Var's CG matvec in one launch on a CUDA
-    tensor, ot_matvec_plain on a CPU tensor. theta and the mask have v's
-    shape or repeat over its batch."""
-    if v.is_cuda:
+    idwt2(theta * dwt2(v))): DWT-Var's CG matvec, on a CUDA tensor in one
+    launch up to MAX_LEVEL and past it as the chained transforms around
+    theta (ot_matvec_plain's composition on the card); ot_matvec_plain on
+    a CPU tensor. theta and the mask have v's shape or repeat over its
+    batch."""
+    if v.is_cuda and level <= MAX_LEVEL:
         return haar_ot_matvec_cuda(v, theta, mask, s2, level)
-    _matvec_planes(v, theta, mask, s2, level)
+    _matvec_planes(v, theta, mask, s2, level, max_level=None)
+    if v.is_cuda:
+        return _chained_matvec(v, theta, mask, s2, level)
     return ot_matvec_plain(v, theta, mask, s2, level)
 
 
+def _chained_matvec(v, theta, mask, s2: float, level: int) -> torch.Tensor:
+    """ot_matvec past MAX_LEVEL: ot_matvec_plain's composition with the
+    chained kernel passes for the two transforms."""
+    w = _chain(theta * _chain(v, level, False), level, True)
+    return w if mask is None else s2 * v + mask * w
+
+
+def _chain(x: torch.Tensor, level: int, inverse: bool) -> torch.Tensor:
+    """The transform of a contiguous CUDA tensor as kernel passes: the
+    first on the whole plane, each later one on the approximation block,
+    copied out contiguous and written back; the inverse in reverse."""
+    (_, first), *rest = passes(level)
+    if not rest:
+        return haar_dwt2_cuda(x, level, inverse)
+    H, W = x.shape[-2:]
+    out = x.clone() if inverse else haar_dwt2_cuda(x, first, False)
+    for done, n in (reversed(rest) if inverse else rest):
+        blk = out[..., :H >> done, :W >> done]
+        blk.copy_(haar_dwt2_cuda(blk.contiguous(), n, inverse))
+    return haar_dwt2_cuda(out, first, True) if inverse else out
+
+
 def _run(x: torch.Tensor, level: int, inverse: bool) -> torch.Tensor:
+    check_level(*x.shape[-2:], level)
     if x.is_cuda:
-        return haar_dwt2_cuda(x.contiguous(), level, inverse)
+        return _chain(x.contiguous(), level, inverse)
     return (idwt2_plain if inverse else dwt2_plain)(x, level)
 
 

@@ -5,7 +5,7 @@ the Karras schedule."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -37,20 +37,28 @@ def build_posterior_sampler(model_apply: Callable,
                             tables: diff.DiffusionTables, operator,
                             guidance_cfg: gd.GuidanceConfig,
                             sampler_cfg: SamplerConfig = SamplerConfig(),
+                            recon_mse: Optional[Dict[str, object]] = None,
                             v2: bool = False, image_size: int = 256,
                             channels: int = 3, device="cuda"):
     """Returns `sample(measurement, n=1, ...) -> hat_x0` ([n, C, H, W]).
 
     model_apply(x_scaled, t) is the raw ADMUNet (v1) or the ADMUNetV2 (v2)
-    forward; the model modules themselves qualify. The sampler runs on
-    `device`; the model, tables, operator and measurement must live there.
+    forward; the model modules themselves qualify. recon_mse is the
+    analytic covariance's table ({"sigmas", "mse_list"}). The sampler runs
+    on `device`; the model, tables, operator and measurement must live
+    there.
     """
     sigmas = schedules.get_sigmas_karras(sampler_cfg.steps,
                                          sampler_cfg.sigma_min,
                                          sampler_cfg.sigma_max,
                                          sampler_cfg.rho)
-    make_uncond = gd.make_openai_v2_uncond if v2 else gd.make_openai_uncond
-    uncond, var_fn = make_uncond(model_apply, tables, guidance_cfg)
+    if v2:
+        uncond, var_fn = gd.make_openai_v2_uncond(model_apply, tables,
+                                                  guidance_cfg)
+    else:
+        uncond, var_fn = gd.make_openai_uncond(model_apply, tables,
+                                               guidance_cfg, recon_mse)
+    stsl = guidance_cfg.guidance.split("+")[0] == "stsl"
     churn = {} if sampler_cfg.ode else dict(
         s_churn=sampler_cfg.s_churn, s_tmin=sampler_cfg.s_tmin,
         s_tmax=sampler_cfg.s_tmax, s_noise=sampler_cfg.s_noise)
@@ -59,17 +67,28 @@ def build_posterior_sampler(model_apply: Callable,
                generator: Optional[torch.Generator] = None,
                init_noise: Optional[torch.Tensor] = None,
                noise_fn: Optional[Callable] = None,
-               return_info: bool = False):
+               probe_fn: Optional[Callable[[int], Sequence[torch.Tensor]]]
+               = None, return_info: bool = False):
         """init_noise (standard normal [n, C, H, W]; scaled by sigma_max
-        here) and noise_fn (churn noise per step, see
-        samplers.sample_heun) inject the randomness; otherwise it comes
-        from `generator`. return_info also returns the info dict of
+        here), noise_fn (churn noise per step, see samplers.sample_heun)
+        and probe_fn (stsl's Hutchinson probes of the k-th guided call,
+        probe_fn(k)) inject the randomness; otherwise it comes from
+        `generator`. return_info also returns the info dict of
         samplers.sample_heun."""
         denoise = gd.make_condition_denoiser(
             uncond, var_fn, operator, measurement, guidance_cfg, v2=v2,
             with_info=return_info)
-        if sampler_cfg.per_sample_map and n > 1 and measurement.y.shape[0] == 1:
+        mapped = (sampler_cfg.per_sample_map and n > 1
+                  and measurement.y.shape[0] == 1)
+        if mapped:
             denoise = _per_sample(denoise, return_info)
+        if stsl:
+            shape = ((1 if mapped else n), channels, image_size, image_size)
+            denoise = _shared_probes(denoise, probe_fn or (
+                lambda k: [torch.randn(shape, generator=generator,
+                                       device=device)
+                           for _ in range(guidance_cfg.num_hutchinson_samples)
+                           ]))
         if init_noise is None:
             init_noise = torch.randn((n, channels, image_size, image_size),
                                      generator=generator, device=device)
@@ -83,13 +102,28 @@ def build_posterior_sampler(model_apply: Callable,
 
 def _per_sample(denoise: Callable, with_info: bool) -> Callable:
     """Runs `denoise` on one sample at a time (`kdip_tpu`'s lax.map,
-    sampling_api.py:110-132); the info reports the worst residual and the
-    summed CG iterations."""
-    def mapped(x, sigma):
-        outs = [denoise(x[i:i + 1], sigma) for i in range(x.shape[0])]
+    sampling_api.py:110-132), each with the call's keyword arguments; the
+    info reports the worst residual and the summed CG iterations."""
+    def mapped(x, sigma, **kw):
+        outs = [denoise(x[i:i + 1], sigma, **kw) for i in range(x.shape[0])]
         if not with_info:
             return torch.cat(outs)
         return torch.cat([o for o, _ in outs]), {
             "cg_resid": max(info["cg_resid"] for _, info in outs),
             "cg_iters": sum(info["cg_iters"] for _, info in outs)}
     return mapped
+
+
+def _shared_probes(denoise: Callable, probe_fn: Callable) -> Callable:
+    """stsl's probes, drawn once per guided call (probe_fn(k) for the k-th)
+    and given to every sample of it, as `kdip_tpu`'s lax.map passes one
+    key, and so one set of probes, to every sample of a call
+    (sampling_api.py:126-132)."""
+    calls = 0
+
+    def call(x, sigma):
+        nonlocal calls
+        eps = probe_fn(calls)
+        calls += 1
+        return denoise(x, sigma, probes=eps)
+    return call

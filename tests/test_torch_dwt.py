@@ -62,6 +62,66 @@ def test_round_trip_and_backward_match_jax_vjp(level):
                                    atol=2e-6)
 
 
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6])
+def test_any_level_matches_kdip_tpu(level):
+    """dwt2 / idwt2 at levels 1-6 (every level whose 2^level divides H and
+    W) against kdip_tpu.ops.transforms.dwt2 / idwt2, atol 2e-6 as above,
+    on a non-square plane; and the round trip."""
+    x = _x(30 + level, (2, 64, 128, 3))
+    xj = jnp.asarray(x)
+    np.testing.assert_allclose(nhwc(D.dwt2(nchw(x), level)),
+                               np.asarray(jtf.dwt2(xj, level=level)),
+                               atol=2e-6)
+    np.testing.assert_allclose(nhwc(D.idwt2(nchw(x), level)),
+                               np.asarray(jtf.idwt2(xj, level=level)),
+                               atol=2e-6)
+    np.testing.assert_allclose(nhwc(D.idwt2(D.dwt2(nchw(x), level), level)),
+                               x, atol=4e-6)
+
+
+def _kernel_stand_in(calls):
+    """haar_dwt2_cuda's checks and arithmetic on the CPU (its plain
+    version), recording each pass's (shape, level, inverse)."""
+    def run(x, level, inverse):
+        assert x.is_contiguous() and 1 <= level <= D.MAX_LEVEL
+        D.check_level(*x.shape[-2:], level, D.MAX_LEVEL)
+        calls.append((tuple(x.shape[-2:]), level, inverse))
+        return (D.idwt2_plain if inverse else D.dwt2_plain)(x, level)
+    return run
+
+
+@pytest.mark.parametrize("level", [1, 3, 4, 6, 7, 8])
+def test_chained_passes_equal_plain(monkeypatch, level):
+    """The card's chain of kernel passes (levels 1-3 on the plane, then up
+    to 3 more on each approximation block, the inverse in reverse), run
+    with the kernel's plain version in its place: bit-equal to
+    dwt2_plain / idwt2_plain at [1, 3, 256, 256], the FFHQ plane."""
+    calls = []
+    monkeypatch.setattr(D, "haar_dwt2_cuda", _kernel_stand_in(calls))
+    x = torch.randn(1, 3, 256, 256, generator=torch.Generator().manual_seed(
+        level))
+    assert torch.equal(D._chain(x, level, False), D.dwt2_plain(x, level))
+    want = D.passes(level)
+    assert calls == [((256 >> d, 256 >> d), n, False) for d, n in want]
+    assert sum(n for _, n in want) == level
+    calls.clear()
+    assert torch.equal(D._chain(x, level, True), D.idwt2_plain(x, level))
+    assert calls == [((256 >> d, 256 >> d), n, True)
+                     for d, n in reversed(want)]
+
+
+def test_levels_are_checked():
+    """Level 0, and a level whose 2^level does not divide H and W, are
+    refused (kdip_tpu's butterflies assert an even size at every level)."""
+    x = torch.zeros(1, 3, 32, 48)
+    for fn in (D.dwt2, D.idwt2):
+        with pytest.raises(ValueError, match="level"):
+            fn(x, 0)
+        with pytest.raises(ValueError, match="divisible"):
+            fn(x, 5)
+        assert fn(x, 4).shape == x.shape
+
+
 def test_non_square_and_dtype_preserved():
     x = torch.randn(1, 2, 16, 24, generator=torch.Generator().manual_seed(0))
     y = D.dwt2(x.to(torch.float64), 3)

@@ -53,6 +53,41 @@ def test_ot_matvec_matches_kdip_tpu(level, shape, pallas):
     np.testing.assert_allclose(nhwc(got), np.asarray(cov), atol=2e-6)
 
 
+@pytest.mark.parametrize("pallas", [False, True], ids=["jnp", "pallas"])
+@pytest.mark.parametrize("level", [4, 5])
+def test_chained_ot_matvec_matches_kdip_tpu(level, pallas):
+    """ot_matvec past the kernel's single-pass levels, on the CPU path,
+    against kdip_tpu's CG matvec and ot_covariance with
+    OrthoTransform("dwt", level), atol 2e-6 as above."""
+    v, theta, mask = _inputs((2, 32, 64, 3), 50 + level)
+    ot = jtf.OrthoTransform("dwt", level=level, use_pallas=pallas)
+    vj, tj, mj = (jnp.asarray(a) for a in (v, theta, mask))
+    want = S2 * vj + mj * ot.inv(tj * ot(vj))
+    got = D.ot_matvec(nchw(v), nchw(theta), nchw(mask), S2, level)
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=2e-6)
+    cov = jtf.ot_covariance(ot, tj)(vj)
+    got = T.ot_covariance(T.OrthoTransform("dwt", level), nchw(theta))(
+        nchw(v))
+    np.testing.assert_allclose(nhwc(got), np.asarray(cov), atol=2e-6)
+
+
+@pytest.mark.parametrize("level", [4, 5, 8])
+def test_chained_matvec_equals_plain(monkeypatch, level):
+    """The card's matvec past MAX_LEVEL (the chained passes around theta,
+    then s2 * v + mask * w), run with the kernel's plain version in its
+    place: bit-equal to ot_matvec_plain, with and without the mask, theta
+    and the mask per sample and repeating over the batch."""
+    def stand_in(x, lv, inverse):
+        assert x.is_contiguous() and lv <= D.MAX_LEVEL
+        return (D.idwt2_plain if inverse else D.dwt2_plain)(x, lv)
+    monkeypatch.setattr(D, "haar_dwt2_cuda", stand_in)
+    v, theta, mask = (nchw(a) for a in _inputs((2, 256, 256, 3), level))
+    for th, m in ((theta, mask), (theta[:1], mask[:1]), (theta, None)):
+        s2 = 0.0 if m is None else S2
+        assert torch.equal(D._chained_matvec(v, th, m, s2, level),
+                           D.ot_matvec_plain(v, th, m, s2, level))
+
+
 @pytest.mark.parametrize("level", [1, 2, 3])
 def test_ot_matvec_plain_is_the_composition(level):
     """ot_matvec_plain, and masked_cov_matvec on both transforms, equal the
@@ -131,7 +166,8 @@ def test_launch_config_covers_every_tile_once():
 def test_matvec_wrapper_rejects_what_it_cannot_take():
     """The checks raise before any build or launch, on CPU tensors too:
     shapes, theta and mask broadcasts other than per sample or repeating
-    over the batch, dtype, contiguity, level, s2 without a mask; then the
+    over the batch, dtype, contiguity, level (the kernel: 1..3; ot_matvec:
+    >= 1 with 2^level dividing H and W), s2 without a mask; then the
     device."""
     v, theta, mask = (nchw(a) for a in _inputs((2, 16, 16, 3), 0))
     bad = {
@@ -146,8 +182,17 @@ def test_matvec_wrapper_rejects_what_it_cannot_take():
         for match, args in bad.items():
             with pytest.raises(ValueError, match=match):
                 fn(*args, S2, 3)
-        with pytest.raises(ValueError, match="level"):
-            fn(v, theta, mask, S2, 4)
+        if fn is D.haar_ot_matvec_cuda:
+            # the kernel's single pass takes levels 1..3
+            with pytest.raises(ValueError, match="level"):
+                fn(v, theta, mask, S2, 4)
+        else:
+            # ot_matvec chains passes past 3 but refuses level 0 and a
+            # level whose 2^level does not divide H and W (16 x 16)
+            with pytest.raises(ValueError, match="level"):
+                fn(v, theta, mask, S2, 0)
+            with pytest.raises(ValueError, match="divisible"):
+                fn(v, theta, mask, S2, 5)
         with pytest.raises(ValueError, match="divisible"):
             fn(v[..., :12].contiguous(), theta[..., :12].contiguous(),
                mask[..., :12].contiguous(), S2, 3)

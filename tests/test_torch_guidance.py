@@ -95,17 +95,17 @@ def test_denoise_matches(name):
 
 
 def test_unported_modes_raise():
-    """Guidance modes, covariances and transforms of later slices raise."""
+    """What later slices port raises: autoI guidance (with every
+    covariance), the nonlinear operators (on either device) and the
+    poisson noise model."""
     y = P.operators.Measurement(y=torch.zeros(1, 3, S, S))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        P.guidance.make_condition_denoiser(
-            None, None, None, y, P.guidance.GuidanceConfig("dps"))
-    for cov in ("pgdm", "dps", "diffpir", "analytic"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            P.guidance.make_openai_uncond(
-                None, None, P.guidance.GuidanceConfig("I", cov))
+    for cov in ("convert", "pgdm", "dps", "diffpir", "analytic"):
         with pytest.raises(NotImplementedError, match="later slice"):
             P.guidance.make_condition_denoiser(
-                None, None, None, y, P.guidance.GuidanceConfig("I", cov))
+                None, None, None, y, P.guidance.GuidanceConfig("autoI", cov))
+    for name in ("phase_retrieval", "nonlinear_blur"):
+        for device in ("cpu", "cuda"):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                P.operators.get_operator(name, device=device)
     with pytest.raises(NotImplementedError, match="later slice"):
-        P.ops.transforms.OrthoTransform("dct")
+        P.operators.get_noise("poisson")(torch.zeros(1, 3, S, S))

@@ -1,0 +1,424 @@
+"""The guidance modes and covariances of `kdip_tpu_torch.guidance` beyond
+Type-I with Convert / tmpd / the V2 heads: one guided denoise per (guidance,
+covariance) pair at a sigma on each side of its mle threshold, against
+`kdip_tpu`'s jitted denoiser with the same random weights (moved through
+`weights.from_jax_params`), the same seeded numpy inputs, NHWC against
+NCHW; the Type-II scalar step against `kdip_tpu`'s composition; CG's
+non-convergence warning in both packages; stsl's shared probes in the
+sampler; and short --ode trajectories with pgdm and analytic against
+`kdip_tpu`'s `build_posterior_sampler`."""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import kdip_tpu_torch as P
+from kdip_tpu import diffusion as jd
+from kdip_tpu import guidance as jg
+from kdip_tpu import operators as jo
+from kdip_tpu import sampling_api as jsa
+from kdip_tpu.models import adm as jadm
+from kdip_tpu.ops import transforms as jtf
+from test_torch_port import SMALL_UNET, nchw, nhwc, random_flax_params
+
+S = SMALL_UNET["image_size"]
+OPS = {
+    # configs/inpainting_config.yaml at 16 px
+    "inpainting": dict(sigma_s=0.05, mask_opt=dict(
+        mask_type="random", mask_prob_range=(0.5, 0.5), image_size=S)),
+    # configs/gaussian_deblur_config.yaml, its kernel cut to 9 px
+    "gaussian_blur": dict(in_shape=(1, 3, S, S), kernel_size=9,
+                          intensity=3.0, sigma_s=0.05),
+}
+# a synthetic recon_mse table for the analytic covariance: the repo holds
+# none (configs/test_imagenet.json names one under runs/)
+_SIG = np.geomspace(0.01, 80.0, 24).astype(np.float32)
+RECON_MSE = {"sigmas": _SIG,
+             "mse_list": (0.4 * _SIG ** 2 / (1 + _SIG ** 2)).astype(np.float32)}
+# eta large enough that the probes move hat_x0 well past the 1e-3
+# tolerance (test_guided_denoise_matches asserts > 1e-2 at sigma 0.6), so
+# the parity checks the second-order term
+STSL = dict(zeta=1.0, eta=50.0, num_hutchinson_samples=2)
+
+# name: (operator, v2, guidance config). Each runs at 0.3x and 3x its mle
+# threshold (0.2, or 1.0 for the V2 heads).
+CASES = {
+    # Type-I with the iso covariances: always the closed form
+    "I-pgdm": ("inpainting", False, dict(guidance="I", x0_cov_type="pgdm")),
+    "I-dps": ("inpainting", False, dict(guidance="I", x0_cov_type="dps")),
+    "I-diffpir": ("inpainting", False, dict(guidance="I",
+                                            x0_cov_type="diffpir",
+                                            lambda_=1.0)),
+    "I-analytic": ("inpainting", False, dict(guidance="I",
+                                             x0_cov_type="analytic")),
+    # Type-II: no vjp but tmpd's; CG below the threshold for convert/tmpd
+    "II-convert": ("inpainting", False, dict(guidance="II",
+                                             x0_cov_type="convert")),
+    "II-pgdm": ("inpainting", False, dict(guidance="II", x0_cov_type="pgdm")),
+    "II-analytic": ("inpainting", False, dict(guidance="II",
+                                              x0_cov_type="analytic")),
+    "II-tmpd": ("inpainting", False, dict(guidance="II", x0_cov_type="tmpd")),
+    "II-v2-dwt": ("inpainting", True, dict(guidance="II", ortho_tf_type="dwt",
+                                           mle_sigma_thres=1.0)),
+    "II-v2-dwt-deblur": ("gaussian_blur", True,
+                         dict(guidance="II", ortho_tf_type="dwt",
+                              mle_sigma_thres=1.0)),
+    # the guidance modes, on inpainting and on gaussian deblur
+    "dps-inpainting": ("inpainting", False, dict(guidance="dps",
+                                                 x0_cov_type="dps", zeta=1.0)),
+    "dps-deblur": ("gaussian_blur", False, dict(guidance="dps",
+                                                x0_cov_type="dps", zeta=1.0)),
+    "pgdm-inpainting": ("inpainting", False, dict(guidance="pgdm",
+                                                  x0_cov_type="pgdm")),
+    "pgdm-deblur": ("gaussian_blur", False, dict(guidance="pgdm",
+                                                 x0_cov_type="pgdm")),
+    "diffpir-inpainting": ("inpainting", False,
+                           dict(guidance="diffpir", x0_cov_type="diffpir",
+                                lambda_=1.0)),
+    "diffpir-deblur": ("gaussian_blur", False,
+                       dict(guidance="diffpir", x0_cov_type="diffpir",
+                            lambda_=1.0)),
+    "stsl": ("inpainting", False, dict(guidance="stsl", **STSL)),
+    # the +mle modes: Type-I (Convert, CG) below 0.2, the base mode above
+    "dps+mle": ("inpainting", False, dict(guidance="dps+mle", zeta=1.0)),
+    "pgdm+mle": ("gaussian_blur", False, dict(guidance="pgdm+mle")),
+    "stsl+mle": ("inpainting", False, dict(guidance="stsl+mle", **STSL)),
+}
+# Wider residual tolerances, as a largest ratio of the two CG exit
+# residuals (tests/test_torch_guidance_blur_sr.py's rule for long solves):
+# a CG stops at the first iteration whose |r| <= 1e-4 |b|, and where it
+# runs long, rounding moves the exit residual by the last iteration's
+# contraction. Measured: II-tmpd at sigma 0.6 runs 507 iterations on a
+# variance that is itself a float32 vjp (8.3e-5 against 9.9e-5);
+# II-v2-dwt-deblur at 0.3 runs 17 (6.30e-5 against 6.33e-5, 0.4%).
+RESID_RATIO = {"II-tmpd": 2.0, "II-v2-dwt-deblur": 2.0}
+
+
+def build(op_name, v2, gcfg, seed=3):
+    """(jax denoise, port denoise) of one configuration, with
+    the same random weights, measurement and operator."""
+    unet = jadm.ADMUNet(**SMALL_UNET)
+    jm = jadm.ADMUNetV2(unet=unet) if v2 else unet
+    params = random_flax_params(jm.init, jnp.zeros((1, S, S, 3)),
+                                jnp.zeros((1,)), seed=seed)
+    tm = P.adm.ADMUNet(**SMALL_UNET, device="cpu")
+    if v2:
+        tm = P.adm.ADMUNetV2(tm)
+    tm.load_state_dict(P.weights.from_jax_params(params))
+
+    jop = jo.get_operator(op_name, seed=0, **OPS[op_name])
+    top = P.operators.get_operator(op_name, seed=0, device="cpu",
+                                   **OPS[op_name])
+    rng = np.random.RandomState(seed)
+    x0 = rng.uniform(-1, 1, (1, S, S, 3)).astype(np.float32)
+    ax = np.asarray(jop.forward(jnp.asarray(x0)))
+    y = (ax + 0.05 * rng.standard_normal(ax.shape)).astype(np.float32)
+    if op_name == "inpainting":
+        y = y * np.asarray(jop.mask)
+
+    jcfg = jg.GuidanceConfig(**gcfg, cg_warn=False)
+    tcfg = P.guidance.GuidanceConfig(**gcfg)
+    table = ({k: jnp.asarray(v) for k, v in RECON_MSE.items()}
+             if tcfg.x0_cov_type == "analytic" else None)
+    fwd = lambda p, x, t: jm.apply({"params": p}, x,  # noqa: E731
+                                   jnp.asarray(t, jnp.float32))
+    jtab = jd.make_diffusion(1000, "linear")
+    ttab = P.diffusion.make_diffusion(1000, "linear", device="cpu")
+    if v2:
+        ju, jv = jg.make_openai_v2_uncond(fwd, jtab, jcfg)
+        tu, tv = P.guidance.make_openai_v2_uncond(tm, ttab, tcfg)
+    else:
+        ju, jv = jg.make_openai_uncond(fwd, jtab, jcfg, recon_mse=table)
+        tu, tv = P.guidance.make_openai_uncond(
+            tm, ttab, tcfg, recon_mse=RECON_MSE if table else None)
+    jden = jax.jit(jg.make_condition_denoiser(
+        ju, jv, jop, jo.Measurement(y=jnp.asarray(y)), jcfg, params=params,
+        v2=v2, with_info=True))
+    tden = P.guidance.make_condition_denoiser(
+        tu, tv, top, P.operators.Measurement(y=nchw(y)), tcfg, v2=v2,
+        with_info=True)
+    return jden, tden
+
+
+def _cg_below(gcfg, sigma):
+    """Whether the call runs a CG solve: a tensor covariance below its
+    threshold (tmpd at every sigma), or an +mle mode's Type-I side."""
+    g = gcfg["guidance"]
+    thres = gcfg.get("mle_sigma_thres", 0.2)
+    if g in ("I", "II"):
+        cov = gcfg.get("x0_cov_type", "convert")
+        return cov == "tmpd" or (cov == "convert" and sigma < thres)
+    return g in ("dps+mle", "pgdm+mle", "stsl+mle") and sigma < thres
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_guided_denoise_matches(name):
+    """hat_x0 within 1e-3 and the CG relative residual within 0.1%
+    relative (RESID_RATIO's cases: within its ratio; 0 on both sides for
+    the closed form and the solver-free modes), at 0.3x and 3x the
+    threshold. Both sides are float32 and sum in other orders (measured:
+    hat_x0 within 6.6e-4 for II-tmpd at 0.6, whose variance is a vjp,
+    3.6e-4 for I-dps at 0.6, whose closed form divides by sigma_s^2 alone,
+    else within 1.5e-5); stsl gets kdip_tpu's own probes, drawn from
+    fold_in(key, i)."""
+    op_name, v2, gcfg = CASES[name]
+    jden, tden = build(op_name, v2, gcfg)
+    thres = gcfg.get("mle_sigma_thres", 0.2)
+    key = jax.random.key(4)
+    rng = np.random.RandomState(11)
+    xs = rng.uniform(-1, 1, (1, S, S, 3)).astype(np.float32)
+    for sigma in (0.3 * thres, 3.0 * thres):
+        x = xs + sigma * rng.standard_normal(xs.shape).astype(np.float32)
+        out_j, info_j = jden(jnp.asarray(x), jnp.float32(sigma), key)
+        probes = None
+        if "stsl" in name:
+            probes = [nchw(jax.random.normal(jax.random.fold_in(key, i),
+                                             x.shape, jnp.float32))
+                      for i in range(STSL["num_hutchinson_samples"])]
+        out_t, info_t = tden(nchw(x), sigma, probes=probes)
+        np.testing.assert_allclose(nhwc(out_t), np.asarray(out_j), atol=1e-3,
+                                   err_msg=f"sigma {sigma}")
+        r_j = float(info_j["cg_resid"])
+        if name == "stsl" and sigma > thres:
+            # other probes move hat_x0: the parity holds the probe term
+            other, _ = tden(nchw(x), sigma, probes=[-p for p in probes])
+            assert (other - out_t).abs().max() > 1e-2
+        r_t = info_t["cg_resid"]
+        if _cg_below(gcfg, sigma):
+            assert 0 < r_t <= 1e-4 and 0 < r_j <= 1e-4
+            assert info_t["cg_iters"] > 0
+        else:
+            assert info_t == {"cg_resid": 0.0, "cg_iters": 0} and r_j == 0
+        if name in RESID_RATIO:
+            assert max(r_t, r_j) <= RESID_RATIO[name] * min(r_t, r_j)
+        else:
+            np.testing.assert_allclose(r_t, r_j, rtol=1e-3)
+
+
+@pytest.mark.parametrize("ortho", ["dwt", "dct"])
+def test_type_II_scalar_step_is_the_composition(ortho):
+    """With a scalar svar (above the threshold, or an iso covariance), the
+    port's Type-II step mat * svar against kdip_tpu's W^-1(W mat * svar):
+    within 2e-6 relative to the largest entry (the orthonormal transform's
+    float32 round trip)."""
+    rng = np.random.RandomState(0)
+    mat = rng.standard_normal((2, S, S, 3)).astype(np.float32)
+    ot = jtf.OrthoTransform(ortho)
+    for s in (np.float32(0.37), np.float32(24.5)):
+        want = np.asarray(ot.inv(ot(jnp.asarray(mat)) * s))
+        got = nhwc(nchw(mat) * float(s))
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got / scale, want / scale, atol=2e-6)
+
+
+def test_type_II_tensor_step_runs_ot_covariance():
+    """Below the threshold Type-II's step with the learned DWT variance is
+    ot_covariance, for "dwt" one call of the fused matvec's no-mask mode
+    (the card's single launch), beside the CG's masked calls; above it the
+    scalar step calls no DWT. Counted through a spy on ops.dwt.ot_matvec."""
+    calls = []
+    orig = P.ops.dwt.ot_matvec
+
+    def spy(v, theta, mask=None, s2=0.0, level=3):
+        calls.append(mask is None)
+        return orig(v, theta, mask, s2, level)
+    P.ops.dwt.ot_matvec = spy
+    try:
+        _, tden = build("inpainting", True, CASES["II-v2-dwt"][2])
+        x = nchw(np.random.RandomState(1).uniform(-1, 1, (1, S, S, 3))
+                 .astype(np.float32))
+        tden(x, 0.3)
+        n_masked = calls.count(False)
+        assert calls.count(True) == 1 and n_masked > 1
+        calls.clear()
+        tden(x, 3.0)  # above the threshold: mat * svar, no DWT
+        assert calls == []
+    finally:
+        P.ops.dwt.ot_matvec = orig
+
+
+def test_modes_check_their_parameters():
+    """dps, diffpir and stsl refuse a configuration without their step
+    sizes; the analytic covariance refuses a missing table; an unknown
+    mode is a ValueError, autoI a later slice."""
+    y = P.operators.Measurement(y=torch.zeros(1, 3, S, S))
+    G = P.guidance.GuidanceConfig
+    for cfg, match in ((G("dps"), "zeta"), (G("dps+mle"), "zeta"),
+                       (G("diffpir"), "lambda_"),
+                       (G("stsl", zeta=1.0), "eta"),
+                       (G("stsl+mle", zeta=1.0, eta=1.0),
+                        "num_hutchinson_samples"),
+                       (G("typeIII"), "Invalid guidance")):
+        with pytest.raises(ValueError, match=match):
+            P.guidance.make_condition_denoiser(None, None, None, y, cfg)
+    with pytest.raises(ValueError, match="recon_mse"):
+        P.guidance.make_openai_uncond(None, None, G("I", "analytic"))
+    with pytest.raises(ValueError, match="lambda_"):
+        P.guidance.make_openai_uncond(None, None, G("I", "diffpir"))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        P.guidance.make_condition_denoiser(None, None, None, y, G("autoI"))
+
+
+# ---------------------------------------------------------------------------
+# CG's non-convergence warning
+# ---------------------------------------------------------------------------
+
+def _diag_system():
+    """An ill-conditioned diagonal system that cannot converge in 2
+    iterations (tests/test_cg_wide_variance.py's)."""
+    diag = np.concatenate([np.full(50, 1e-3), np.full(50, 1e3)]
+                          ).astype(np.float32)
+    return diag, np.ones(100, np.float32)
+
+
+@pytest.mark.parametrize("maxiter,truncated", [(2, True), (500, False)])
+def test_cg_warn_in_both_packages(capfd, maxiter, truncated):
+    """A solve cut by cg_maxiter warns in both packages (kdip_tpu prints
+    through jax.debug.print, the port raises a RuntimeWarning with the same
+    message); a converged one warns in neither; cg_warn=False silences the
+    port. (The two residuals are not compared: CG solves this
+    two-eigenvalue system exactly in 2 steps, so what is left is float32
+    rounding, which the packages' dot products order differently.)"""
+    diag, b = _diag_system()
+    jcfg = jg.GuidanceConfig(cg_maxiter=maxiter, cg_tol=1e-6)
+    _, r_j = jax.block_until_ready(
+        jg._cg(lambda v: jnp.asarray(diag) * v, jnp.asarray(b), jcfg))
+    out = capfd.readouterr()
+    assert ("CG did not converge" in out.out + out.err) == truncated
+
+    dt, bt = torch.from_numpy(diag), torch.from_numpy(b)
+    tcfg = P.guidance.GuidanceConfig(cg_maxiter=maxiter, cg_tol=1e-6)
+    assert tcfg.cg_warn
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        _, r_t, k = P.guidance._cg(lambda v: dt * v, bt, tcfg)
+    msgs = [str(w.message) for w in got
+            if issubclass(w.category, RuntimeWarning)]
+    if truncated:
+        assert len(msgs) == 1 and msgs[0].startswith(
+            f"CG did not converge in {maxiter} iters: |r|/|b| = ")
+        assert k == maxiter and r_t > 1e-6
+        with pytest.warns(RuntimeWarning, match="CG did not converge"):
+            P.guidance._cg(lambda v: dt * v, bt, tcfg)
+    else:
+        assert msgs == [] and r_t <= 1e-6
+    assert (float(r_j) > 1e-6) == truncated
+    quiet = P.guidance.GuidanceConfig(cg_maxiter=maxiter, cg_tol=1e-6,
+                                      cg_warn=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        P.guidance._cg(lambda v: dt * v, bt, quiet)
+
+
+def test_truncated_guided_solve_warns_through_the_denoiser():
+    """A Type-I Convert denoise below the threshold whose CG budget is 1
+    iteration warns from the port's denoiser, with_info or not."""
+    _, tden = build("inpainting", False, dict(guidance="I", cg_maxiter=1))
+    x = nchw(np.random.RandomState(2).uniform(-1, 1, (1, S, S, 3))
+             .astype(np.float32))
+    with pytest.warns(RuntimeWarning, match="CG did not converge in 1 iters"):
+        _, info = tden(x, 0.05)
+    assert info["cg_iters"] == 1 and info["cg_resid"] > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# trajectories through build_posterior_sampler
+# ---------------------------------------------------------------------------
+
+STEPS, N = 4, 2
+
+
+def _jax_draws(key, n_hutch=0):
+    """The standard-normal draws kdip_tpu's Heun sampler makes from `key`
+    (sampling_api.py:133-135, samplers.py:137-146): the initial x, the
+    churn noise of each step, and stsl's probes of each guided call (one
+    sample's shape: lax.map passes every sample the same key)."""
+    k_init, k = jax.random.split(key)
+    init = jax.random.normal(k_init, (N, S, S, 3))
+    churn, probes = [], []
+    for step in range(STEPS):
+        k, k_churn, k_m, k_m2 = jax.random.split(k, 4)
+        churn.append(nchw(jax.random.normal(k_churn, (N, S, S, 3))))
+        for km in ((k_m,) if step == STEPS - 1 else (k_m, k_m2)):
+            probes.append([nchw(jax.random.normal(jax.random.fold_in(km, i),
+                                                  (1, S, S, 3)))
+                           for i in range(n_hutch)])
+    return nchw(init), churn, probes
+
+
+def _trajectory(gcfg, scfg, seed, recon=False):
+    """(kdip_tpu's samples and info, the port's) of one configuration on
+    inpainting, the draws replayed from kdip_tpu's key."""
+    jm = jadm.ADMUNet(**SMALL_UNET)
+    params = random_flax_params(jm.init, jnp.zeros((1, S, S, 3)),
+                                jnp.zeros((1,)), seed=seed)
+    tm = P.adm.ADMUNet(**SMALL_UNET, device="cpu")
+    tm.load_state_dict(P.weights.from_jax_params(params))
+    jop = jo.get_operator("inpainting", seed=1, **OPS["inpainting"])
+    top = P.operators.get_operator("inpainting", seed=1, device="cpu",
+                                   **OPS["inpainting"])
+    rng = np.random.RandomState(2)
+    x0 = rng.uniform(-1, 1, (1, S, S, 3)).astype(np.float32)
+    y = (x0 + 0.05 * rng.standard_normal(x0.shape).astype(np.float32)
+         ) * np.asarray(jop.mask)
+    table = {k: jnp.asarray(v) for k, v in RECON_MSE.items()}
+    jsampler = jsa.build_posterior_sampler(
+        lambda p, x, t: jm.apply({"params": p}, x,
+                                 jnp.asarray(t, jnp.float32)),
+        jd.make_diffusion(1000, "linear"), jop,
+        jg.GuidanceConfig(**gcfg, cg_warn=False), jsa.SamplerConfig(**scfg),
+        recon_mse=table if recon else None, image_size=S)
+    key = jax.random.key(9)
+    out_j, info_j = jax.jit(
+        lambda p, m, k: jsampler(p, m, k, n=N, return_info=True))(
+            params, jo.Measurement(y=jnp.asarray(y)), key)
+    tsampler = P.sampling_api.build_posterior_sampler(
+        tm, P.diffusion.make_diffusion(1000, "linear", device="cpu"), top,
+        P.guidance.GuidanceConfig(**gcfg), P.sampling_api.SamplerConfig(**scfg),
+        recon_mse=RECON_MSE if recon else None, image_size=S, device="cpu")
+    init, churn, probes = _jax_draws(
+        key, gcfg.get("num_hutchinson_samples") or 0)
+    seen = []
+
+    def probe_fn(k):
+        seen.append(k)
+        return probes[k]
+    out_t, info_t = tsampler(P.operators.Measurement(y=nchw(y)), n=N,
+                             init_noise=init, noise_fn=churn.__getitem__,
+                             probe_fn=probe_fn, return_info=True)
+    return out_j, info_j, out_t, info_t, seen
+
+
+@pytest.mark.parametrize("cov", ["pgdm", "analytic"])
+def test_ode_trajectory_matches(cov):
+    """--ode (no churn), 4 Heun steps, 2 samples against one measurement,
+    Type-I with an iso covariance: the closed form at every NFE. Final
+    samples within 2e-3: float32 on both sides, summation-order
+    differences carried through 7 guided NFEs, each scaled by its step.
+    sigma_max 2 keeps hat_x0's sigma^2 cancellation small, as
+    tests/test_torch_sampling.py explains."""
+    out_j, info_j, out_t, info_t, _ = _trajectory(
+        dict(guidance="I", x0_cov_type=cov),
+        dict(steps=STEPS, sigma_max=2.0, ode=True), seed=5,
+        recon=cov == "analytic")
+    assert out_t.shape == (N, 3, S, S) and torch.isfinite(out_t).all()
+    np.testing.assert_allclose(nhwc(out_t), np.asarray(out_j), atol=2e-3)
+    assert float(info_j["cg_max_residual"]) == 0
+    assert info_t == {"cg_max_residual": 0.0, "cg_total_iters": 0}
+
+
+def test_stsl_trajectory_shares_probes_across_samples():
+    """stsl through the sampler, churn on, 2 samples: every sample of a
+    guided call gets the same probes, drawn once per call, as kdip_tpu's
+    lax.map gives every sample one key; fed kdip_tpu's draws, the samples
+    match within 2e-3 (as the Heun trajectories do)."""
+    gcfg = dict(guidance="stsl", **STSL)
+    out_j, _, out_t, info_t, seen = _trajectory(
+        gcfg, dict(steps=STEPS, sigma_max=2.0), seed=6)
+    assert seen == list(range(2 * STEPS - 1))
+    np.testing.assert_allclose(nhwc(out_t), np.asarray(out_j), atol=2e-3)
+    assert info_t == {"cg_max_residual": 0.0, "cg_total_iters": 0}
