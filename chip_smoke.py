@@ -29,6 +29,16 @@ each printing one JSON line:
 4. one guided NFE below the threshold, with the kernel DWT and with the
    plain DWT, compared; the kernel run is traced with torch.profiler for
    the device's busy share and its top kernels;
+4a. slice_autoI_dwt_var: the same model with autoI guidance (the CLI's
+   --v2 --guidance autoI, 8 Hutchinson probes), Heun-50 with churn, n=4:
+   every guided call launches the standalone forward DWT 1 + 8 times and
+   the inverse 8 times, and below the threshold the fused no-mask matvec
+   once a CG iteration and once a solve (1 + 8 solves a call), counted
+   exactly against the calls recorded as they run; then nfe_autoI (one
+   autoI NFE below the threshold, kernel DWT against plain DWT on the
+   same probes, the kernel run traced) and nfe_loglikelihood
+   (`denoise.loglikelihood`, 8 probes of 25 Lanczos steps, kernel
+   against plain);
 5. slice, Convert: the V1 ADMUNet, Type-I guidance with the Convert
    covariance, the same sampler;
 6. kernels_winograd: both entry points of the Winograd F(2,3) kernel
@@ -52,12 +62,14 @@ each printing one JSON line:
    and the bound; then a line that sums them per level (H) and per NFE;
 10. slices on the other operators of bench.py's grid, each Heun-50 with
    churn, n samples against one measurement, operators from configs/:
-   gaussian deblur with Convert (no DWT or Winograd launch), motion deblur
-   with Convert (the PSF loaded from kdip_tpu_torch/data, as the card has
-   no PIL), 4x super-resolution with Convert (y is [1, 3, 64, 64]),
-   gaussian deblur with tmpd (a CG solve at every NFE; n=1), and gaussian
-   deblur with DWT-Var (the fused matvec's no-mask mode, its launches the
-   CG iterations plus one per solve);
+   gaussian deblur with Convert (no DWT or Winograd launch), the same
+   with the CG warm start (`cg_warm_start`; its CG iterations and ms/NFE
+   beside the cold slice's), motion deblur with Convert (the PSF loaded
+   from kdip_tpu_torch/data, as the card has no PIL), 4x super-resolution
+   with Convert (y is [1, 3, 64, 64]), gaussian deblur with tmpd (a CG
+   solve at every NFE; n=1), and gaussian deblur with DWT-Var (the fused
+   matvec's no-mask mode, its launches the CG iterations plus one per
+   solve);
 11. one tmpd and one DWT-Var gaussian-deblur guided NFE, each traced: its
    device time by kind (the FFTs are cuFFT's), the idle share and the CG
    iterations; and tmpd's variance at a few sigmas: its range and the
@@ -76,8 +88,12 @@ each printing one JSON line:
 14. nfe_stsl: one traced stsl NFE (2 Hutchinson probes, 3 UNet forwards
    and their backward), and one pgdm+mle NFE on each side of its
    threshold, each with its device busy share and peak memory;
-15. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   7, 10 and 12), its error, its time against its plain version's, its
+15. the nonlinear operators with dps (zeta 1, n=1, no CG, no DWT):
+   slice_phase_retrieval_dps (Euler-50, oversample 1.0: 320 px FFTs) and
+   slice_nonlinear_blur_dps (DPM++(2M)-25, poisson noise on y, a small
+   seeded blur network built here);
+16. the `kernels` line: per kernel, its launches in its slices (phases 3,
+   4a, 7, 10 and 12), its error, its time against its plain version's, its
    bound and, for the Winograd kernels, cuDNN's direct conv, at the
    slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
@@ -126,6 +142,15 @@ MOTION_PSF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
 TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
 STSL_NFE_SIGMA = 0.5            # phase 14's stsl NFE
+AUTOI_PROBES = 8                # autoI's Hutchinson probes, SLQ's probes
+AUTOI_NFE_SIGMA = 0.5           # nfe_autoI and nfe_loglikelihood
+LL_LANCZOS = 25                 # SLQ's Lanczos steps a probe
+# nfe_loglikelihood, kernel vs plain DWT: |ll_k - ll_p| <= LL_TOL * d, d =
+# 196,608 values of y: the value sums three float32 terms of size ~d (the
+# quadratic term, the logdet, d log 2 pi); the two runs differ only where
+# CG or Lanczos round apart
+LL_TOL = 1e-5
+NONLINEAR_STEPS = 25            # slice_nonlinear_blur_dps: DPM++(2M)-25
 # slice_analytic_I's recon_mse table: the repo holds no measured one
 # (configs/test_imagenet.json names one under runs/), so a synthetic one,
 # half of mle_var at 64 log-spaced sigmas
@@ -228,7 +253,10 @@ def randomize_(model, seed: int, std: float = 0.02):
 
 class PlainDWT:
     """OrthoTransform("dwt") on the plain PyTorch version: the comparison
-    side of phase 4 (the port itself never sends a CUDA tensor there)."""
+    side of the kernel-vs-plain NFE phases (the port itself never sends a
+    CUDA tensor there). Its type is not "dwt", so ot_covariance composes
+    its two transforms around the variance."""
+    ortho_tf_type = "plain_dwt"
 
     def __init__(self, level: int = 3):
         self.level = level
@@ -480,14 +508,14 @@ def config_path(name: str) -> str:
 
 
 def build_slice(dev, v2: bool, seed: int, winograd: bool = False,
-                op_cfg=None, model_config=None):
+                op_cfg=None, model_config=None, measure=None):
     """(model, tables, operator, measurement) of one configuration at full
     width: ffhq_unet (+ the out_cov head for v2), or the model the CLI
     builds from a configs/ file (`config.make_openai_model`: with winograd
     configs/test_ffhq.json, winograd=True; else `model_config`), weights
     from `seed`, bf16 torso with the norm parameters in float32; the
     operator from `op_cfg` (default: p=0.5 inpainting), the measurement of
-    a random image."""
+    a random image (`measure(op, x, generator)`, else op.measure)."""
     import torch
     from kdip_tpu_torch import config, diffusion, operators, weights
     from kdip_tpu_torch.models import adm
@@ -509,7 +537,9 @@ def build_slice(dev, v2: bool, seed: int, winograd: bool = False,
     op = operators.get_operator(seed=0, device=dev, **op_cfg)
     g = torch.Generator(device=dev).manual_seed(seed + 100)
     x_true = torch.rand(1, 3, SIZE, SIZE, generator=g, device=dev) * 2 - 1
-    return model, tables, op, op.measure(x_true, generator=g), x_true
+    meas = (measure or (lambda o, x, gen: o.measure(x, generator=gen)))(
+        op, x_true, g)
+    return model, tables, op, meas, x_true
 
 
 def guided_nfes_below(thres: float) -> int:
@@ -541,11 +571,13 @@ def winograd_per_nfe(model):
 
 def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
               winograd: bool = False, op_cfg=None, model_config=None,
-              ode: bool = False, recon_mse=None):
-    """Heun-50 (with churn unless `ode`), n samples against one
-    measurement; returns the phase record (and the measurement pieces for
-    the NFE phases). CG's non-convergence warnings are counted, not
-    printed."""
+              ode: bool = False, recon_mse=None, sampler: str = "heun",
+              steps: int = 0, measure=None):
+    """`sampler` for `steps` (0: STEPS) steps, Heun-50 by default (with
+    churn unless `ode` or dpmpp_2m), n samples against one measurement;
+    returns the phase record
+    (and the measurement pieces for the NFE phases). CG's non-convergence
+    warnings are counted, not printed."""
     import warnings
 
     import torch
@@ -553,8 +585,10 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
     from kdip_tpu_torch.ops import dwt as D
     from kdip_tpu_torch.ops import winograd as Wg
     model, tables, op, meas, x_true = build_slice(dev, v2, seed, winograd,
-                                                  op_cfg, model_config)
-    scfg = sampling_api.SamplerConfig(steps=STEPS, ode=ode)
+                                                  op_cfg, model_config,
+                                                  measure)
+    scfg = sampling_api.SamplerConfig(steps=steps or STEPS, ode=ode,
+                                      sampler=sampler)
     sampler = sampling_api.build_posterior_sampler(
         model, tables, op, gcfg, scfg, recon_mse=recon_mse, v2=v2,
         image_size=SIZE, device=dev)
@@ -572,9 +606,11 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
     launches = dict(D.launch_counts)
     modes = dict(D.matvec_mode_counts)
     wino_launches = dict(Wg.launch_counts)
-    nfe = n * (2 * scfg.steps - 1)
+    # Heun calls the denoiser twice a step but the last; the others once
+    nfe = n * (2 * scfg.steps - 1 if scfg.sampler == "heun" else scfg.steps)
     amax = out.abs().max().item()
     rec = {"phase": name, "guidance": gcfg.guidance,
+           "sampler": scfg.sampler,
            "x0_cov_type": None if v2 else gcfg.x0_cov_type,
            "ortho_tf_type": gcfg.ortho_tf_type, "v2": v2, "ode": ode,
            "n": n, "steps": scfg.steps, "operator": op.name,
@@ -935,6 +971,16 @@ def run_blur_sr_slices(dev, n: int = N_SAMPLES):
                        seed=3, n=n, op_cfg=blur)
     emit(rec)
     no_dwt(rec)
+    # the same slice (weights, measurement, draws) with the CG warm start
+    warm, _ = run_slice("slice_gaussian_deblur_convert_warm", dev, False,
+                        gd.GuidanceConfig("I", "convert", cg_warm_start=True),
+                        seed=3, n=n, op_cfg=blur)
+    warm["cold"] = {k: rec[k] for k in ("cg_total_iters", "ms_per_nfe",
+                                        "cg_max_residual")}
+    warm["cg_iters_warm_over_cold"] = (warm["cg_total_iters"]
+                                       / rec["cg_total_iters"])
+    emit(warm)
+    no_dwt(warm)
 
     rec, parts = run_slice("slice_motion_deblur_convert", dev, False, convert,
                            seed=4, n=n, op_cfg=load_op_config(
@@ -1117,6 +1163,256 @@ def phase_nfe_traced(name, dev, gcfg, v2: bool, parts,
                 "min": theta.min().item(), "max": theta.max().item(),
                 "negative_share": (theta < 0).float().mean().item()}
     emit(rec)
+
+
+def run_autoi_slice(dev, n: int = N_SAMPLES):
+    """slice_autoI_dwt_var: the DWT-Var model (configs/test_ffhq_dwt.json
+    under --v2 --guidance autoI: threshold 1.0, AUTOI_PROBES probes),
+    Heun-50 with churn, n samples against one measurement. Every guided
+    call (one a sample under the per-sample loop) runs the standalone
+    forward DWT 1 + P times (the r-solve's W^T A^T alpha, one a probe) and
+    the inverse P times (one a probe), above the threshold too; below it
+    each of its 1 + P solves launches the fused no-mask matvec once an
+    iteration and once for the first residual (above it K is theta * u).
+    The calls' sigmas and iterations are recorded from
+    autoi.auto_type_I_guidance as it runs, and the launches must equal
+    those counts exactly. Returns the launches and (config, pieces)."""
+    from kdip_tpu_torch import autoi
+    from kdip_tpu_torch import guidance as gd
+    gcfg = gd.GuidanceConfig("autoI", ortho_tf_type="dwt",
+                             mle_sigma_thres=1.0, num_probes=AUTOI_PROBES)
+    calls = []
+    orig = autoi.auto_type_I_guidance
+
+    def recorded(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args[6], out[2]))     # (sigma, CG iterations)
+        return out
+    autoi.auto_type_I_guidance = recorded
+    try:
+        rec, parts = run_slice("slice_autoI_dwt_var", dev, True, gcfg,
+                               seed=30, n=n)
+    finally:
+        autoi.auto_type_I_guidance = orig
+    p = gcfg.num_probes
+    below = [k for sig, k in calls if sig < gcfg.mle_sigma_thres]
+    want = {"haar_dwt2": len(calls) * (1 + p), "haar_idwt2": len(calls) * p,
+            "haar_ot_matvec": sum(k + 1 + p for k in below)}
+    rec.update({"num_probes": p, "guided_calls": len(calls),
+                "guided_calls_below": len(below),
+                "cg_iters_below": sum(below), "dwt_launches_expected": want,
+                "dwt_launches_per_call": {k: v / len(calls)
+                                          for k, v in want.items()}})
+    emit(rec)
+    if (len(calls) != rec["nfe"] or rec["dwt_launches"] != want
+            or rec["ot_matvec_by_mode"]["mask"]):
+        raise AssertionError(f"autoI DWT-Var: {len(calls)} calls of "
+                             f"{rec['nfe']}, launches {rec['dwt_launches']}, "
+                             f"by mode {rec['ot_matvec_by_mode']}, expected "
+                             f"{want}")
+    return rec["dwt_launches"], (gcfg, parts)
+
+
+def autoi_denoisers(gcfg, parts):
+    """(the port's autoI denoiser, the same on PlainDWT) of a slice's
+    pieces."""
+    from kdip_tpu_torch import guidance as gd
+    model, tables, op, meas, _ = parts
+    uncond, var_fn = gd.make_openai_v2_uncond(model, tables, gcfg)
+    return tuple(gd.make_condition_denoiser(
+        uncond, var_fn, op, meas, gcfg, v2=True, with_info=True,
+        ortho_tf=ot) for ot in (None, PlainDWT()))
+
+
+def phase_nfe_autoi(dev, gcfg, parts, sigma: float = AUTOI_NFE_SIGMA):
+    """nfe_autoI: one autoI NFE below the threshold with the kernel DWT and
+    with the plain DWT on the same probes, NFE_REPS times each in turns
+    after a warm-up: hat_x0 within NFE_TOL (phase 4's reasons, over 1 + P
+    solves), CG iterations within 2 a solve; the kernel call's launches
+    exactly 1 + P forward, P inverse and iterations + 1 + P fused no-mask
+    matvecs, the plain call's none. The kernel call is then traced: busy
+    share, device ms by kind, the Haar DWT's device ms, peak memory."""
+    import torch
+    from kdip_tpu_torch import autoi
+    from kdip_tpu_torch.ops import dwt as D
+    _, _, _, _, x_true = parts
+    den_k, den_p = autoi_denoisers(gcfg, parts)
+    p = gcfg.num_probes
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = x_true + sigma * torch.randn(x_true.shape, generator=g, device=dev)
+    probes = [autoi.rademacher(x.shape, g, dev) for _ in range(p)]
+    walls = {"kernel": [], "plain": []}
+    res, launches = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(NFE_REPS + 1):
+        for k, den in (("kernel", den_k), ("plain", den_p)):
+            D.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[k] = den(x, sigma, probes=probes)
+            torch.cuda.synchronize()
+            if rep:
+                walls[k].append(1e3 * (time.perf_counter() - t0))
+            launches[k] = dict(D.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (out_k, info_k), (out_p, info_p) = res["kernel"], res["plain"]
+    want = {"haar_dwt2": 1 + p, "haar_idwt2": p,
+            "haar_ot_matvec": info_k["cg_iters"] + 1 + p}
+    diff = (out_k - out_p).abs().max().item()
+    t_k = float(np.median(walls["kernel"]))
+
+    def traced_nfe():
+        den_k(x, sigma, probes=probes)
+        torch.cuda.synchronize()
+    kernels = device_events_by_name(trace_device_events(traced_nfe))
+    busy_ms = sum(k[0] for k in kernels)
+    by_kind = device_ms_by_kind(kernels)
+    rec = {"phase": "nfe_autoI", "sigma": sigma, "num_probes": p,
+           "max_abs_diff": diff, "tol": NFE_TOL,
+           "cg_iters": [info_k["cg_iters"], info_p["cg_iters"]],
+           "cg_resid": [info_k["cg_resid"], info_p["cg_resid"]],
+           "launches": launches, "launches_expected": want,
+           "median_wall_ms": {k: float(np.median(v)) for k, v in
+                              walls.items()}, "reps": NFE_REPS,
+           "peak_mem_gib": peak,
+           "device_busy_ms": busy_ms if kernels else "not measured",
+           "device_busy_share": busy_ms / t_k if kernels else "not measured",
+           "device_idle_share": (1 - busy_ms / t_k) if kernels
+           else "not measured",
+           "device_ms_by_kind": by_kind,
+           "haar_dwt_device_ms": by_kind.get("haar_dwt", 0.0) if kernels
+           else "not measured",
+           "top_kernels_ms": [[round(k[0], 4), k[1], k[2][:80]]
+                              for k in kernels[:10]]}
+    emit(rec)
+    fails = []
+    if launches["kernel"] != want or sum(launches["plain"].values()):
+        fails.append(f"launches {launches}, expected {want} and none")
+    if not diff <= NFE_TOL:
+        fails.append(f"|kernel - plain| {diff} > {NFE_TOL}")
+    if abs(info_k["cg_iters"] - info_p["cg_iters"]) > 2 * (1 + p):
+        fails.append(f"CG iterations {rec['cg_iters']}")
+    if not max(info_k["cg_resid"], info_p["cg_resid"]) <= gcfg.cg_tol:
+        fails.append(f"CG residuals {rec['cg_resid']}")
+    if fails:
+        raise AssertionError(f"nfe_autoI: {fails}")
+
+
+def phase_nfe_loglikelihood(dev, gcfg, parts, sigma: float = AUTOI_NFE_SIGMA):
+    """nfe_loglikelihood: one denoise.loglikelihood at `sigma` (a CG solve
+    for the quadratic term, then SLQ over P probes of LL_LANCZOS Lanczos
+    steps, each a fused no-mask matvec), with the kernel DWT and the plain
+    DWT on the same probes, in turns: the value, the gap between the two
+    within LL_TOL * d, both CG residuals within cg_tol, the wall time, and
+    the launches (the kernel's: at least P * LL_LANCZOS + 1 matvecs and no
+    standalone transform; the plain's: none)."""
+    import torch
+    from kdip_tpu_torch import autoi
+    from kdip_tpu_torch.ops import dwt as D
+    _, _, _, meas, x_true = parts
+    den_k, den_p = autoi_denoisers(gcfg, parts)
+    p = gcfg.num_probes
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = x_true + sigma * torch.randn(x_true.shape, generator=g, device=dev)
+    probes = [autoi.rademacher(meas.y.shape, g, dev) for _ in range(p)]
+    out, walls, launches = {}, {}, {}
+    for k, den in (("kernel", den_k), ("plain", den_p), ("kernel", den_k)):
+        D.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ll, resid = den.loglikelihood(x, sigma, probes=probes,
+                                      lanczos_iters=LL_LANCZOS)
+        ll = ll.item()
+        walls.setdefault(k, []).append(1e3 * (time.perf_counter() - t0))
+        out[k] = (ll, resid)
+        launches[k] = dict(D.launch_counts)
+    d = meas.y.numel()
+    gap = abs(out["kernel"][0] - out["plain"][0])
+    rec = {"phase": "nfe_loglikelihood", "sigma": sigma, "num_probes": p,
+           "lanczos_iters": LL_LANCZOS, "d": d,
+           "ll": {k: v[0] for k, v in out.items()},
+           "cg_resid": {k: v[1] for k, v in out.items()},
+           "abs_gap": gap, "gap_per_d": gap / d,
+           "rel_gap": gap / abs(out["plain"][0]), "tol_per_d": LL_TOL,
+           "wall_ms": walls, "launches": launches}
+    emit(rec)
+    fails = []
+    if not all(np.isfinite(v[0]) and v[1] <= gcfg.cg_tol
+               for v in out.values()):
+        fails.append(f"values {out}")
+    if not gap <= LL_TOL * d:
+        fails.append(f"gap {gap} > {LL_TOL} * {d}")
+    lk = launches["kernel"]
+    if (lk["haar_dwt2"] or lk["haar_idwt2"]
+            or lk["haar_ot_matvec"] < p * LL_LANCZOS + 1
+            or sum(launches["plain"].values())):
+        fails.append(f"launches {launches}")
+    if fails:
+        raise AssertionError(f"nfe_loglikelihood: {fails}")
+
+
+class BlurNet:
+    """The nonlinear blur's network in slice_nonlinear_blur_dps, a small
+    seeded stand-in for the external bkse KernelWizard (none is in the
+    repo, and the card's machine has no network): a 5x5 box blur of
+    x01 plus a residual of two 5x5 convs (3 -> 16 -> 3) whose hidden gains
+    a projection of the (1, 512, 2, 2) kernel sets."""
+
+    def __init__(self, dev, seed: int, width: int = 16):
+        import torch
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def draw(*shape, scale):
+            return torch.randn(shape, generator=g, device=dev) * scale
+        self.w1 = draw(width, 3, 5, 5, scale=75 ** -0.5)
+        self.w2 = draw(3, width, 5, 5, scale=0.1 * (25 * width) ** -0.5)
+        self.proj = draw(width, 2048, scale=2048 ** -0.5)
+        self.box = torch.full((3, 1, 5, 5), 1 / 25, device=dev)
+
+    def __call__(self, x01, kernel):
+        import torch
+        import torch.nn.functional as F
+        gain = 1 + 0.5 * torch.tanh(self.proj @ kernel.reshape(-1))
+        h = F.silu(F.conv2d(x01, self.w1, padding=2) * gain[:, None, None])
+        return (F.conv2d(x01, self.box, padding=2, groups=3)
+                + F.conv2d(h, self.w2, padding=2))
+
+
+def poisson_measure(op, x, g):
+    """y = poisson(A x) (rate 1): the nonlinear blur slice's measurement,
+    through the operator's own kernel."""
+    from kdip_tpu_torch import operators
+    return operators.Measurement(y=operators.get_noise("poisson")(
+        op.forward(x), generator=g))
+
+
+def run_nonlinear_slices(dev):
+    """slice_phase_retrieval_dps (the V1 UNet, dps zeta 1, Euler-50 with
+    churn, n=1; oversample 1.0, so y and the FFTs are 320 px) and
+    slice_nonlinear_blur_dps (dps zeta 1, DPM++(2M)-25, n=1, poisson noise
+    on y, BlurNet): no mat solver, so no CG and no DWT. Returns {slice:
+    DWT launches}."""
+    from kdip_tpu_torch import guidance as gd
+    dps = gd.GuidanceConfig("dps", "dps", zeta=1.0)
+    pr, _ = run_slice("slice_phase_retrieval_dps", dev, False, dps, seed=40,
+                      n=1, sampler="euler",
+                      op_cfg=dict(name="phase_retrieval", oversample=1.0,
+                                  sigma_s=0.05))
+    emit(pr)
+    nb, _ = run_slice("slice_nonlinear_blur_dps", dev, False, dps, seed=42,
+                      n=1, sampler="dpmpp_2m", steps=NONLINEAR_STEPS,
+                      op_cfg=dict(name="nonlinear_blur", sigma_s=0.05,
+                                  blur_apply=BlurNet(dev, seed=41)),
+                      measure=poisson_measure)
+    emit(nb)
+    for rec in (pr, nb):
+        check_no_dwt(rec)
+        if rec["cg_total_iters"]:
+            raise AssertionError(f"{rec['phase']}: a CG ran")
+    if pr["y_shape"] != [1, 3, SIZE + 64, SIZE + 64]:
+        raise AssertionError(f"phase retrieval: y {pr['y_shape']}")
+    return {rec["phase"]: rec["dwt_launches"] for rec in (pr, nb)}
 
 
 def winograd_launch_shapes(model, dev):
@@ -1405,11 +1701,20 @@ def main() -> int:
     want = rec["cg_total_iters"] + solves
     emit({"phase": "slice_dwt_var_launches", "cg_solves": solves,
           "haar_ot_matvec_expected": want, "dwt_launches": launches})
-    if launches["haar_ot_matvec"] != want:
+    if (launches["haar_ot_matvec"] != want or launches["haar_dwt2"]
+            or launches["haar_idwt2"]):
         raise AssertionError(f"DWT-Var: {launches['haar_ot_matvec']} fused "
                              f"matvec launches, expected {want}")
 
     timed("nfe_kernel_vs_plain_dwt", phase_nfe_compare, dev, dwt_cfg, parts)
+    del parts
+    torch.cuda.empty_cache()
+
+    autoi_launches, (autoi_cfg, parts) = timed(
+        "slice_autoI_dwt_var", run_autoi_slice, dev)
+    timed("nfe_autoI", phase_nfe_autoi, dev, autoi_cfg, parts)
+    timed("nfe_loglikelihood", phase_nfe_loglikelihood, dev, autoi_cfg,
+          parts)
     del parts
     torch.cuda.empty_cache()
 
@@ -1440,6 +1745,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     by_slice = {"slice_dwt_var": launches,
+                "slice_autoI_dwt_var": autoi_launches,
                 "slice_gaussian_deblur_dwt_var": deblur_launches}
     by_slice.update(timed("type_ii_and_dct_slices",
                           run_type_ii_and_dct_slices, dev))
@@ -1456,6 +1762,7 @@ def main() -> int:
               f"nfe_pgdm+mle_{side}", dev, mle, False, parts, sigma=sigma)
     del parts
     torch.cuda.empty_cache()
+    by_slice.update(timed("nonlinear_slices", run_nonlinear_slices, dev))
 
     rows = timed("kernel_rows", kernel_rows, dev, {
         k: sum(c[k] for c in by_slice.values()) for k in launches})

@@ -7,8 +7,8 @@ CUDA kernels live under `csrc/` and are built with nvcc at first use
 (`ops/_build.py`).
 """
 
-from . import (config, diffusion, guidance, operators, precond,  # noqa: F401
-               samplers, sampling_api, schedules, weights)
+from . import (autoi, config, diffusion, guidance, operators,  # noqa: F401
+               precond, samplers, sampling_api, schedules, weights)
 from .models import adm, layers  # noqa: F401
 from .ops import (dwt, fft, kernels, resize, transforms,  # noqa: F401
                   winograd)

@@ -1,12 +1,14 @@
 """Conditional denoising E[x0 | xt, y] (PyTorch port of `kdip_tpu/guidance.py`;
 ref: condition/condition.py).
 
-Ported: the guidance modes uncond, I, II, dps, pgdm, diffpir, stsl and
-dps+mle / pgdm+mle / stsl+mle for the OpenAI ADM models, with the Convert,
-tmpd, analytic, pgdm, dps and diffpir covariances (V1) and the learned
-DWT/DCT/spatial covariance heads (V2), and the likelihood solves of the
-four linear operators: inpainting, deblurring (gaussian, motion), bicubic
-super-resolution and colorization. autoI is a later slice.
+Ported: every guidance mode of `kdip_tpu` (uncond, I, II, dps, pgdm,
+diffpir, stsl, autoI and dps+mle / pgdm+mle / stsl+mle) for the OpenAI ADM
+models, with the Convert, tmpd, analytic, pgdm, dps and diffpir covariances
+(V1) and the learned DWT/DCT/spatial covariance heads (V2); the likelihood
+solves of the four linear operators: inpainting, deblurring (gaussian,
+motion), bicubic super-resolution and colorization, with the CG warm start
+(cg_warm_start); and `denoise.loglikelihood`, the measurement
+log-likelihood's value (`autoi.measurement_loglikelihood`).
 
 Differences of form from `kdip_tpu`, not of result:
 - sigma is a host-side float, so the mle-threshold switches
@@ -21,8 +23,11 @@ Differences of form from `kdip_tpu`, not of result:
   under `torch.no_grad()`;
 - Type-II's step W^-1(W mat * svar) with a scalar svar is mat * svar
   (the orthonormal transform cancels);
-- stsl's Hutchinson probes are injected (`probes=`) or drawn from a
-  torch.Generator, not from jax's fold_in(key, i).
+- stsl's Hutchinson probes and autoI's Rademacher probes are injected
+  (`probes=`) or drawn from a torch.Generator, not from jax's
+  fold_in(key, i);
+- the warm start's solver state is a dict of tensors, and the per-sample
+  loop keeps a list of n such states (`kdip_tpu` stacks them).
 """
 
 from __future__ import annotations
@@ -42,8 +47,6 @@ from .operators import (BlurOperator, ColorizationOperator,
 from .ops import fft as offt
 from .ops.transforms import OrthoTransform, ot_covariance
 
-_LATER = "is not ported yet: a later slice of the PyTorch port (ROADMAP queue 1)"
-
 # How each covariance reaches the solve (ref: kdip_tpu guidance.py:585-589,
 # the reference's theta0_var.numel() == 1 dispatch): "switch" - CG with the
 # covariance below mle_sigma_thres, the closed form at mle_var above (Convert
@@ -52,7 +55,8 @@ _LATER = "is not ported yet: a later slice of the PyTorch port (ROADMAP queue 1)
 # per-sigma table entry).
 _COV_KIND = {"convert": "switch", "tmpd": "tensor", "pgdm": "iso",
              "dps": "iso", "diffpir": "iso", "analytic": "iso"}
-GUIDANCE_MODES = ("uncond", "I", "II", "dps", "pgdm", "diffpir", "stsl")
+GUIDANCE_MODES = ("uncond", "I", "II", "dps", "pgdm", "diffpir", "stsl",
+                  "autoI")
 MLE_MODES = ("dps+mle", "pgdm+mle", "stsl+mle")
 
 
@@ -66,9 +70,12 @@ class GuidanceConfig:
     near-isotropic covariances, harmful on wide-range ones such as tmpd's
     (kdip_tpu guidance.py:65-74); off, as in the reference's scipy CG.
     cg_warn warns (RuntimeWarning) when a solve exits above tolerance, as
-    the reference's scipy CG does (condition.py:344-345). zeta (dps, stsl),
-    lambda_ (diffpir), eta and num_hutchinson_samples (stsl) are the
-    modes' step sizes and probe count."""
+    the reference's scipy CG does (condition.py:344-345). cg_warm_start
+    seeds each solve of guidance I/II with the previous sampler step's CG
+    iterate (`kdip_tpu` guidance.py:82-92; off, as the reference's scipy
+    CG always starts from zero). zeta (dps, stsl), lambda_ (diffpir), eta
+    and num_hutchinson_samples (stsl) are the modes' step sizes and probe
+    count; num_probes is autoI's Hutchinson probe count and SLQ's."""
     guidance: str = "I"
     x0_cov_type: str = "convert"
     mle_sigma_thres: float = 0.2
@@ -81,6 +88,8 @@ class GuidanceConfig:
     cg_maxiter: Optional[int] = None
     cg_precondition: bool = False
     cg_warn: bool = True
+    cg_warm_start: bool = False
+    num_probes: int = 8
 
 
 def resolved_cg_maxiter(cfg: GuidanceConfig) -> int:
@@ -210,19 +219,20 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int,
-                      M=None):
-    """Conjugate gradients from x0 = 0 in the update order of
+                      M=None, x0: Optional[torch.Tensor] = None):
+    """Conjugate gradients from x0 (default 0) in the update order of
     jax.scipy.sparse.linalg.cg (`kdip_tpu` guidance.py:268-311), stopping
-    once rs = |r|^2 <= tol^2 |b|^2 or after maxiter iterations. With a
-    preconditioner M, z = M(r) and gamma = <r, z>, and rs is <r, r> (one
-    more reduction an iteration). The test reads rs on the host after
-    every iteration. Returns (x, rs, atol2, iterations), rs and atol2 as
-    0-d device tensors."""
+    once rs = |r|^2 <= tol^2 |b|^2 or after maxiter iterations; the first
+    residual is b - A x0, and the stopping rule does not change with x0
+    (scipy's x0 semantics). With a preconditioner M, z = M(r) and gamma =
+    <r, z>, and rs is <r, r> (one more reduction an iteration). The test
+    reads rs on the host after every iteration. Returns (x, rs, atol2,
+    iterations), rs and atol2 as 0-d device tensors."""
     preconditioned = M is not None
     M = M if preconditioned else (lambda v: v)
     bs = _vdot(b, b)
     atol2 = torch.tensor(tol, dtype=b.dtype, device=b.device).square() * bs
-    x = torch.zeros_like(b)
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
     r = b - matvec(x)
     p = z = M(r)
     gamma = _vdot(r, z)
@@ -242,15 +252,17 @@ def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int,
     return x, rs, atol2, k
 
 
-def _cg(matvec, b, cfg: GuidanceConfig, M=None):
+def _cg(matvec, b, cfg: GuidanceConfig, M=None, x0=None):
     """CG returning (x, rel_resid, iterations) with rel_resid = |r|/|b| at
     exit as a host float (0 for b == 0) (`kdip_tpu` guidance.py:327-352).
-    M preconditions only with cfg.cg_precondition. With cfg.cg_warn a
-    solve that exits above tolerance warns with `kdip_tpu`'s message; the
-    test rides on the one host read of the residual."""
+    M preconditions only with cfg.cg_precondition; x0 warm-starts the
+    solve. With cfg.cg_warn a solve that exits above tolerance warns with
+    `kdip_tpu`'s message; the test rides on the one host read of the
+    residual."""
     maxiter = resolved_cg_maxiter(cfg)
     x, rs, atol2, k = _cg_with_residual(matvec, b, cfg.cg_tol, maxiter,
-                                        M if cfg.cg_precondition else None)
+                                        M if cfg.cg_precondition else None,
+                                        x0)
     bs = atol2 / torch.tensor(cfg.cg_tol, dtype=rs.dtype).square()
     rel = torch.sqrt(rs / bs.clamp(min=torch.finfo(rs.dtype).tiny))
     rel, above = torch.stack([rel, (rs > atol2).to(rel.dtype)]).tolist()
@@ -259,6 +271,25 @@ def _cg(matvec, b, cfg: GuidanceConfig, M=None):
                       f"|r|/|b| = {np.float32(rel)}", RuntimeWarning,
                       stacklevel=2)
     return x, rel, k
+
+
+def _closed(mat, u0, want_state):
+    """A closed-form solver's return: no CG ran, so the residual is 0, and
+    with want_state the warm-start state u0 passes through (`kdip_tpu`
+    guidance.py:363-370)."""
+    if want_state:
+        return mat, 0.0, 0, {"u": u0, "iters": 0}
+    return mat, 0.0, 0
+
+
+def _via_cg(matvec, b, cfg, M, u0, want_state, post=lambda u: u):
+    """A CG solver's return: (post(u), rel_resid, iterations), and with
+    want_state {"u": u, "iters": iterations}, u being the raw CG variable
+    (the next step's warm start) (`kdip_tpu` guidance.py:373-382)."""
+    u, resid, iters = _cg(matvec, b, cfg, M, x0=u0)
+    if want_state:
+        return post(u), resid, iters, {"u": u, "iters": iters}
+    return post(u), resid, iters
 
 
 def _sigma_s2(op, floor: float) -> float:
@@ -273,13 +304,15 @@ def _iso_denom(s2: float, theta, scale=1.0) -> float:
 
 
 def inpainting_mat(op: InpaintingOperator, y, x0_mean, theta0_var, ortho_tf,
-                   iso: bool, cfg: GuidanceConfig):
-    """(ref: condition.py:317-348) Returns (mat, rel_resid, cg_iterations)."""
+                   iso: bool, cfg: GuidanceConfig, *, u0=None,
+                   want_state=False):
+    """(ref: condition.py:317-348) Returns (mat, rel_resid, cg_iterations),
+    and with want_state the warm-start state (see mat_solver)."""
     mask = op.mask
     sigma_s2 = _sigma_s2(op, 0.001)
     b = mask * y - mask * x0_mean
     if iso:
-        return b / _iso_denom(sigma_s2, theta0_var), 0.0, 0
+        return _closed(b / _iso_denom(sigma_s2, theta0_var), u0, want_state)
 
     def matvec(v):  # sigma_s2 v + mask W^-1(theta0_var W v), fused
         return ortho_tf.masked_cov_matvec(v, theta0_var, mask, sigma_s2)
@@ -290,11 +323,11 @@ def inpainting_mat(op: InpaintingOperator, y, x0_mean, theta0_var, ortho_tf,
     def iso_inverse(v):
         return v / (sigma_s2 + mask * theta_bar)
 
-    return _cg(matvec, b, cfg, iso_inverse)
+    return _via_cg(matvec, b, cfg, iso_inverse, u0, want_state)
 
 
 def deblur_mat(op: BlurOperator, y, x0_mean, theta0_var, ortho_tf,
-               iso: bool, cfg: GuidanceConfig):
+               iso: bool, cfg: GuidanceConfig, *, u0=None, want_state=False):
     """(ref: condition.py:351-398) The FFT closed form, or CG on
     (s2 I + A C A^T) u = y - A x0_mean, returning A^T u."""
     s2 = _sigma_s2(op, 0.001)
@@ -302,7 +335,7 @@ def deblur_mat(op: BlurOperator, y, x0_mean, theta0_var, ortho_tf,
     if iso:
         num = offt.fft2(y - offt.ifft2(FB * offt.fft2(x0_mean)).real)
         mat = offt.ifft2(num / (s2 + theta0_var * F2B) * FBC).real
-        return mat, 0.0, 0
+        return _closed(mat, u0, want_state)
     cov = ot_covariance(ortho_tf, theta0_var)
     b = y - offt.ifft2(FB * offt.fft2(x0_mean)).real
 
@@ -316,8 +349,8 @@ def deblur_mat(op: BlurOperator, y, x0_mean, theta0_var, ortho_tf,
     def iso_inverse(u):
         return offt.ifft2(offt.fft2(u) / (s2 + theta_bar * F2B)).real
 
-    u, resid, iters = _cg(matvec, b, cfg, iso_inverse)
-    return offt.ifft2(FBC * offt.fft2(u)).real, resid, iters
+    return _via_cg(matvec, b, cfg, iso_inverse, u0, want_state,
+                   lambda u: offt.ifft2(FBC * offt.fft2(u)).real)
 
 
 def _block_mean_f2b(F2B: torch.Tensor, sf: int) -> torch.Tensor:
@@ -329,10 +362,11 @@ def _block_mean_f2b(F2B: torch.Tensor, sf: int) -> torch.Tensor:
 
 
 def super_resolution_mat(op: SuperResolutionOperator, y, x0_mean, theta0_var,
-                         ortho_tf, iso: bool, cfg: GuidanceConfig):
+                         ortho_tf, iso: bool, cfg: GuidanceConfig, *,
+                         u0=None, want_state=False):
     """(ref: condition.py:401-439) Solves with the FFT form of A (blur, then
     every sf-th pixel), not the bicubic forward, as the reference does;
-    sigma_s is clipped at 1e-2 here."""
+    sigma_s is clipped at 1e-2 here. The CG variable is low-resolution."""
     s2 = _sigma_s2(op, 1e-2)
     sf = op.scale_factor
     FB, FBC = op.FB, op.FBC
@@ -348,7 +382,7 @@ def super_resolution_mat(op: SuperResolutionOperator, y, x0_mean, theta0_var,
         num = offt.fft2(y - A_fft(x0_mean))
         ratio = num / (s2 + theta0_var * invW)
         mat = offt.ifft2(FBC * ratio.repeat(1, 1, sf, sf)).real
-        return mat, 0.0, 0
+        return _closed(mat, u0, want_state)
     cov = ot_covariance(ortho_tf, theta0_var)
     b = y - A_fft(x0_mean)
 
@@ -361,19 +395,20 @@ def super_resolution_mat(op: SuperResolutionOperator, y, x0_mean, theta0_var,
     def iso_inverse(u):
         return offt.ifft2(offt.fft2(u) / (s2 + theta_bar * invW)).real
 
-    u, resid, iters = _cg(matvec, b, cfg, iso_inverse)
-    return AT_fft(u), resid, iters
+    return _via_cg(matvec, b, cfg, iso_inverse, u0, want_state, AT_fft)
 
 
 def colorization_mat(op: ColorizationOperator, y, x0_mean, theta0_var,
-                     ortho_tf, iso: bool, cfg: GuidanceConfig):
+                     ortho_tf, iso: bool, cfg: GuidanceConfig, *, u0=None,
+                     want_state=False):
     """A = the channel mean, so A A^T = I/3 (kdip_tpu guidance.py:496-516;
     the reference registers no solver for it): the closed form, or CG in
-    y-space; returns A^T u."""
+    y-space (one channel); returns A^T u."""
     s2 = _sigma_s2(op, 0.001)
     b = y - op.forward(x0_mean)
     if iso:
-        return op.transpose(b / _iso_denom(s2, theta0_var, 3.0)), 0.0, 0
+        return _closed(op.transpose(b / _iso_denom(s2, theta0_var, 3.0)),
+                       u0, want_state)
     cov = ot_covariance(ortho_tf, theta0_var)
 
     def matvec(u):
@@ -384,21 +419,40 @@ def colorization_mat(op: ColorizationOperator, y, x0_mean, theta0_var,
     def iso_inverse(u):
         return u / (s2 + theta_bar / 3.0)
 
-    u, resid, iters = _cg(matvec, b, cfg, iso_inverse)
-    return op.transpose(u), resid, iters
+    return _via_cg(matvec, b, cfg, iso_inverse, u0, want_state, op.transpose)
 
 
 def mat_solver(op, y, x0_mean, theta0_var, ortho_tf, iso: bool,
-               cfg: GuidanceConfig):
+               cfg: GuidanceConfig, *, u0=None, want_state=False):
     """Registry dispatch on the operator (ref: condition.py:307-314). Each
-    solver returns (mat, rel_resid, cg_iterations)."""
+    solver returns (mat, rel_resid, cg_iterations); with want_state it
+    appends {"u": the raw CG variable, "iters": cg_iterations}, the warm
+    start of the next solve (u0 passes through a closed form); u0 seeds
+    the CG (`kdip_tpu` guidance.py:519-537)."""
     solver = {"inpainting": inpainting_mat, "gaussian_blur": deblur_mat,
               "motion_blur": deblur_mat,
               "super_resolution": super_resolution_mat,
               "colorization": colorization_mat}.get(op.name)
     if solver is None:
         raise NotImplementedError(f"no mat solver for operator {op.name!r}")
-    return solver(op, y, x0_mean, theta0_var, ortho_tf, iso, cfg)
+    return solver(op, y, x0_mean, theta0_var, ortho_tf, iso, cfg, u0=u0,
+                  want_state=want_state)
+
+
+def init_solver_state(op, x_shape, device="cpu"):
+    """The zero warm-start state for cg_warm_start on NCHW images of
+    x_shape: u has the shape of the solver's raw CG variable, in x-space
+    for inpainting and deblurring, low-resolution for super-resolution,
+    one channel for colorization (`kdip_tpu` guidance.py:540-554)."""
+    B, C, H, W = x_shape
+    if op.name == "super_resolution":
+        sf = op.scale_factor
+        shape = (B, C, H // sf, W // sf)
+    elif op.name == "colorization":
+        shape = (B, 1, H, W)
+    else:
+        shape = (B, C, H, W)
+    return {"u": torch.zeros(shape, device=device), "iters": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -414,20 +468,29 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
     """Builds `denoise(x, sigma, probes=None) -> hat_x0` for every guidance
     mode of GUIDANCE_MODES and MLE_MODES (ref: condition.py:83-131,
     `kdip_tpu` guidance.py:561-829); sigma is a host float. With with_info
-    it returns (hat_x0, info): info["cg_resid"] is the CG relative
-    residual |r|/|b| at exit (0.0 for closed-form and solver-free modes),
-    info["cg_iters"] its iteration count. `ortho_tf` replaces the transform
-    named by cfg.ortho_tf_type (a test's fake).
+    it returns (hat_x0, info): info["cg_resid"] is the worst CG relative
+    residual |r|/|b| at exit of the call's solves (0.0 for closed-form and
+    solver-free modes), info["cg_iters"] their iteration count. `ortho_tf`
+    replaces the transform named by cfg.ortho_tf_type (a test's fake).
 
     stsl's Hutchinson probes (num_hutchinson_samples tensors broadcastable
-    to x) come from the call's `probes`, else they are standard normal
-    draws of x's shape from `generator`."""
+    to x) and autoI's (cfg.num_probes Rademacher tensors of x's shape) come
+    from the call's `probes`, else they are drawn from `generator`.
+
+    With cfg.cg_warm_start (guidance I or II, a CG covariance, with_info)
+    the call is `denoise(x, sigma, solver_state=st)`, st from
+    `init_solver_state` or the previous call's info["solver_state"]: the
+    solve starts from st["u"] (`kdip_tpu` guidance.py:747-770, 789-807).
+
+    Every denoiser carries `denoise.loglikelihood(x, sigma, probes=None,
+    lanczos_iters=25) -> (ll, cg_rel_resid)`, the measurement
+    log-likelihood at the moments of (x, sigma) (`kdip_tpu`
+    guidance.py:772-787; see autoi.measurement_loglikelihood)."""
+    from . import autoi
     if ortho_tf is None:
         ortho_tf = OrthoTransform(cfg.ortho_tf_type)
     y = measurement.y
     guidance = cfg.guidance
-    if guidance == "autoI":
-        raise NotImplementedError(f"guidance {guidance!r} {_LATER}")
     if guidance not in GUIDANCE_MODES + MLE_MODES:
         raise ValueError(f"Invalid guidance type: {guidance!r}.")
     kind = "switch" if v2 else _COV_KIND.get(cfg.x0_cov_type)
@@ -440,6 +503,25 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
     missing = [f for f in need if getattr(cfg, f) is None]
     if missing:
         raise ValueError(f"guidance {guidance!r} needs {missing}")
+    if guidance == "autoI" and kind == "tensor":
+        # kdip_tpu's autoI hands x0_var_fn no vjp (autoi.py:164), so tmpd's
+        # variance fails its assert (guidance.py:187) when traced
+        raise ValueError("autoI takes no tmpd covariance: its variance "
+                         "needs the vjp of x0_mean, which autoI's single "
+                         "backward does not provide")
+    warm = cfg.cg_warm_start
+    if warm:
+        # kdip_tpu's asserts (guidance.py:789-795)
+        if not with_info:
+            raise ValueError("cg_warm_start needs the info-returning "
+                             "denoiser (with_info=True)")
+        if guidance not in ("I", "II"):
+            raise ValueError(f"cg_warm_start applies to guidance I/II (CG "
+                             f"solves), not {guidance!r}")
+        if kind == "iso":
+            raise ValueError(f"covariance {cfg.x0_cov_type!r} is closed-"
+                             f"form (no CG); cg_warm_start has nothing to "
+                             f"warm")
     thres = cfg.mle_sigma_thres
 
     def moments(x, sigma, grad: bool):
@@ -468,42 +550,48 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         svar = x0_var if cfg.ortho_tf_type is None else theta0_var
         return svar.detach() if torch.is_tensor(svar) else svar
 
-    def solve(x0m, svar, sigma):
+    def solve(x0m, svar, sigma, st=None):
         """"iso": the closed form (a tensor variance reduced to its mean);
         "tensor": CG; "switch": CG below mle_sigma_thres, the closed form
-        at mle_var above (`kdip_tpu` guidance.py:616-638)."""
+        at mle_var above (`kdip_tpu` guidance.py:616-659). Returns (mat,
+        rel_resid, iterations, the warm-start state or None); with a
+        state `st` the CG starts from st["u"]."""
+        kw = {} if st is None else dict(u0=st["u"], want_state=True)
         if kind == "iso":
             sv = float(svar.mean()) if torch.is_tensor(svar) else svar
-            return mat_solver(operator, y, x0m, sv, ortho_tf, True, cfg)
-        if kind == "tensor" or sigma < thres:
-            return mat_solver(operator, y, x0m, svar, ortho_tf, False, cfg)
-        return mat_solver(operator, y, x0m, mle_var(sigma), ortho_tf, True,
-                          cfg)
+            out = mat_solver(operator, y, x0m, sv, ortho_tf, True, cfg, **kw)
+        elif kind == "tensor" or sigma < thres:
+            out = mat_solver(operator, y, x0m, svar, ortho_tf, False, cfg,
+                             **kw)
+        else:
+            out = mat_solver(operator, y, x0m, mle_var(sigma), ortho_tf,
+                             True, cfg, **kw)
+        return out if st is not None else out + (None,)
 
     def s2(sigma):
         return _f32(np.float32(sigma) ** 2)
 
-    def type_I(x, sigma, _):
+    def type_I(x, sigma, _, st=None):
         """ref: condition.py:167-174. tmpd's variance is the vjp of x0_mean
         with ones, taken on the graph the score's vjp reuses."""
         x0m, aux, mean_vjp = moments(x, sigma, True)
-        mat, resid, iters = solve(x0m, solver_var(aux, sigma, mean_vjp,
-                                                  x.shape), sigma)
-        return x0m + s2(sigma) * mean_vjp(mat, False), resid, iters
+        mat, resid, iters, state = solve(
+            x0m, solver_var(aux, sigma, mean_vjp, x.shape), sigma, st)
+        return x0m + s2(sigma) * mean_vjp(mat, False), resid, iters, state
 
-    def type_II(x, sigma, _):
+    def type_II(x, sigma, _, st=None):
         """ref: condition.py:176-183: x0_mean + W^-1(W mat * svar). Only
         tmpd's variance needs the vjp. A tensor svar runs ot_covariance
         (for "dwt" one fused no-mask launch); with a scalar the transform
         cancels, mat * svar."""
         x0m, aux, mean_vjp = moments(x, sigma, kind == "tensor")
         svar = solver_var(aux, sigma, mean_vjp, x.shape)
-        mat, resid, iters = solve(x0m, svar, sigma)
+        mat, resid, iters, state = solve(x0m, svar, sigma, st)
         step = (ot_covariance(ortho_tf, svar)(mat) if torch.is_tensor(svar)
                 else mat * svar)
-        return x0m + step, resid, iters
+        return x0m + step, resid, iters, state
 
-    def dps(x, sigma, _):
+    def dps(x, sigma, _, st=None):
         """ref: condition.py:140-148: the gradient of -|y - A x0_mean| (the
         norm over the whole call) through the operator and the UNet,
         times zeta."""
@@ -513,9 +601,9 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
             norm = torch.linalg.vector_norm(y - operator.forward(x0d))
         g, = torch.autograd.grad(norm, x0d)
         score = mean_vjp(-g, False) * cfg.zeta
-        return x0m.detach() + s2(sigma) * score, 0.0, 0
+        return x0m.detach() + s2(sigma) * score, 0.0, 0, None
 
-    def pgdm(x, sigma, _):
+    def pgdm(x, sigma, _, st=None):
         """ref: condition.py:150-157: the closed form at mle_var(sigma),
         the vjp scaled by it."""
         x0m, _, mean_vjp = moments(x, sigma, True)
@@ -523,18 +611,18 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         mat, resid, iters = mat_solver(operator, y, x0m, x0_var, ortho_tf,
                                        True, cfg)
         return (x0m + s2(sigma) * (mean_vjp(mat, False) * x0_var),
-                resid, iters)
+                resid, iters, None)
 
-    def diffpir(x, sigma, _):
+    def diffpir(x, sigma, _, st=None):
         """ref: condition.py:159-165: no vjp; x0_mean + mat * sigma^2 /
         lambda_."""
         x0m, _, _ = moments(x, sigma, False)
         x0_var = _f32(np.float32(sigma) ** 2 / np.float32(cfg.lambda_))
         mat, resid, iters = mat_solver(operator, y, x0m, x0_var, ortho_tf,
                                        True, cfg)
-        return x0m + mat * x0_var, resid, iters
+        return x0m + mat * x0_var, resid, iters, None
 
-    def stsl(x, sigma, eps_list):
+    def stsl(x, sigma, eps_list, st=None):
         """ref: condition.py:185-208: the gradient at x of zeta *
         (-|y - A x0_mean|) + eta / x.numel() * the mean over the probes
         of -sigma^2 <x0_mean(x + eps) - x0_mean(x), eps>, through
@@ -557,24 +645,58 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
             second = second / cfg.num_hutchinson_samples
             loss = cfg.zeta * first + (cfg.eta / x.numel()) * second
         g, = torch.autograd.grad(loss, x)
-        return x0_mean.detach() + s2(sigma) * g, 0.0, 0
+        return x0_mean.detach() + s2(sigma) * g, 0.0, 0, None
 
-    def uncond(x, sigma, _):
-        return moments(x, sigma, False)[0], 0.0, 0
+    def auto_I(x, sigma, probes, st=None):
+        """ref: condition.py:133-138: the gradient of the exact Gaussian
+        log-likelihood, by CG and Hutchinson probes (autoi.py)."""
+        if probes is None:
+            probes = [autoi.rademacher(x.shape, generator, x.device, x.dtype)
+                      for _ in range(cfg.num_probes)]
+        if len(probes) != cfg.num_probes:
+            raise ValueError(f"{len(probes)} probes, num_probes "
+                             f"{cfg.num_probes}")
+        return autoi.auto_type_I_guidance(
+            uncond_pred, x0_var_fn, operator, y, cfg, x, sigma, ortho_tf,
+            probes, v2=v2) + (None,)
+
+    def uncond(x, sigma, _, st=None):
+        return moments(x, sigma, False)[0], 0.0, 0, None
 
     impls = {"uncond": uncond, "I": type_I, "II": type_II, "dps": dps,
-             "pgdm": pgdm, "diffpir": diffpir, "stsl": stsl}
+             "pgdm": pgdm, "diffpir": diffpir, "stsl": stsl, "autoI": auto_I}
 
-    def denoise(x, sigma, probes=None):
-        """`probes`: stsl's Hutchinson probes for this call (see above)."""
+    def denoise(x, sigma, probes=None, solver_state=None):
+        """`probes`: stsl's or autoI's probes for this call (see above);
+        `solver_state`: the warm start's state (cg_warm_start only)."""
         sigma = float(sigma)
+        if warm and solver_state is None:
+            raise ValueError("the cg_warm_start denoiser takes solver_state")
         # the +mle modes: Type-I below mle_sigma_thres, the base mode above
         fn = (type_I if guidance in MLE_MODES and sigma < thres
               else impls[base])
-        out, resid, iters = fn(x, sigma, probes)
+        out, resid, iters, state = fn(x, sigma, probes,
+                                      solver_state if warm else None)
         out = out.clamp(-1, 1)
-        if with_info:
-            return out, {"cg_resid": resid, "cg_iters": iters}
-        return out
+        if not with_info:
+            return out
+        info = {"cg_resid": resid, "cg_iters": iters}
+        if warm:
+            info["solver_state"] = state
+        return out, info
 
+    def loglikelihood(x, sigma, probes=None, lanczos_iters: int = 25):
+        """The scalar log N(y; A x0_mean, K) at the moments of (x, sigma)
+        and the CG's relative residual (see
+        autoi.measurement_loglikelihood); `probes` are SLQ's num_probes
+        Rademacher tensors of y's shape, else drawn from `generator`.
+        Diagnostic only: no guidance mode consumes the value."""
+        sigma = float(sigma)
+        x0m, aux, mean_vjp = moments(x, sigma, kind == "tensor")
+        svar = solver_var(aux, sigma, mean_vjp, x.shape)
+        return autoi.measurement_loglikelihood(
+            operator, ortho_tf, y, x0m, svar, cfg, probes=probes,
+            generator=generator, lanczos_iters=lanczos_iters)
+
+    denoise.loglikelihood = loglikelihood
     return denoise

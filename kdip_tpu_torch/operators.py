@@ -2,11 +2,11 @@
 ref: condition/measurements.py). NCHW images in [-1, 1].
 
 Ported: denoising ("noise"), colorization, gaussian and motion blur,
-bicubic super-resolution, random/box inpainting, and the clean and
-gaussian noise models. Every operator's forward is differentiable (dps and
-stsl guidance differentiate it). The nonlinear operators (phase
-retrieval, nonlinear blur) and the poisson noise raise
-NotImplementedError until their slice.
+bicubic super-resolution, random/box inpainting, the nonlinear phase
+retrieval and nonlinear blur, and the clean, gaussian and poisson noise
+models. Every operator's forward is differentiable (dps and stsl guidance
+differentiate it). Randomness (measurement noise, the nonlinear blur's
+kernel, poisson counts) is injected or drawn from a torch.Generator.
 """
 
 from __future__ import annotations
@@ -47,18 +47,6 @@ def get_operator(name: str, device="cuda", **kwargs):
     if name not in __OPERATOR__:
         raise NameError(f"no operator registered under {name!r}")
     return __OPERATOR__[name](device=device, **kwargs)
-
-
-def _later_slice(what: str):
-    def build(*_, **__):
-        raise NotImplementedError(
-            f"{what} is not ported yet: a later slice of the PyTorch port, "
-            "with the nonlinear guidance (ROADMAP queue 1, item 8)")
-    return build
-
-
-for _name in ("phase_retrieval", "nonlinear_blur"):
-    register_operator(_name)(_later_slice(f"operator {_name!r}"))
 
 
 def _nchw_shape_to_hw(in_shape) -> Tuple[int, int]:
@@ -257,6 +245,122 @@ def _build_inpainting(sigma_s: float = 0.05, mask_opt: Optional[dict] = None,
     return InpaintingOperator(mask=mask, sigma_s=float(np.float32(sigma_s)))
 
 
+# ---------------------------------------------------------------------------
+# Nonlinear operators (ref: measurements.py:322-367)
+# ---------------------------------------------------------------------------
+
+def _gaussian_measure(forward, sigma_s, x, noise, generator, **kw):
+    y = forward(x, **kw)
+    if noise is None:
+        noise = torch.randn(y.shape, generator=generator, device=y.device,
+                            dtype=y.dtype)
+    return Measurement(y=y + sigma_s * noise)
+
+
+class PhaseRetrievalOperator:
+    """y = |F(pad(x))|, the centred 2-D FFT magnitude of the zero-padded
+    image over H and W (ref: measurements.py:330-339, dps_utils
+    img_utils.py:26 fft2_m; `kdip_tpu` operators.py:361-384), on
+    torch.fft; differentiable. It has no mat solver: only dps, stsl and
+    uncond guidance reach it."""
+    name = "phase_retrieval"
+
+    def __init__(self, pad: int = 32, sigma_s: float = 0.05):
+        self.pad = pad
+        self.sigma_s = sigma_s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.pad
+        xp = torch.nn.functional.pad(x, (p, p, p, p))
+        dims = (-2, -1)
+        f = torch.fft.fftshift(torch.fft.fftn(
+            torch.fft.ifftshift(xp, dim=dims), dim=dims), dim=dims)
+        return f.abs()
+
+    def project(self, x, measurement):
+        return x + measurement - self.forward(x)
+
+    def measure(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Measurement:
+        """y = forward(x) + sigma_s * n, n injected (standard normal, y's
+        shape) or drawn from `generator`."""
+        return _gaussian_measure(self.forward, self.sigma_s, x, noise,
+                                 generator)
+
+
+@register_operator("phase_retrieval")
+def _build_phase_retrieval(oversample: float = 1.0, sigma_s: float = 0.05,
+                           **_):
+    # the reference's pad: oversample / 8 of 256, whatever the image size
+    return PhaseRetrievalOperator(pad=int((oversample / 8.0) * 256),
+                                  sigma_s=float(np.float32(sigma_s)))
+
+
+class NonlinearBlurOperator:
+    """A learned nonlinear blur (ref: measurements.py:341-367; `kdip_tpu`
+    operators.py:393-430): `blur_apply(x01, kernel) -> x01`, any
+    differentiable callable over [0, 1]-scaled NCHW images (the reference
+    loads the external bkse KernelWizard), with the [-1, 1] <-> [0, 1]
+    rescaling and the clip. forward uses the operator's `kernel` (as
+    `kdip_tpu`'s forward without a key uses one fixed draw); measure
+    draws a fresh N(0, 1.2^2) kernel of kernel_shape unless one is
+    injected, as the reference does."""
+    name = "nonlinear_blur"
+
+    def __init__(self, blur_apply: Callable, kernel: torch.Tensor,
+                 sigma_s: float = 0.05):
+        self.blur_apply = blur_apply
+        self.kernel = kernel
+        self.kernel_shape = tuple(kernel.shape)
+        self.sigma_s = sigma_s
+
+    def draw_kernel(self, generator: Optional[torch.Generator] = None):
+        """A N(0, 1.2^2) kernel of kernel_shape from `generator`."""
+        return torch.randn(self.kernel_shape, generator=generator,
+                           device=self.kernel.device) * 1.2
+
+    def forward(self, x: torch.Tensor,
+                kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kernel = self.kernel if kernel is None else kernel
+        blurred = self.blur_apply((x + 1.0) / 2.0, kernel)
+        return (blurred * 2.0 - 1.0).clamp(-1, 1)
+
+    def project(self, x, measurement):
+        return x + measurement - self.forward(x)
+
+    def measure(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                kernel: Optional[torch.Tensor] = None) -> Measurement:
+        """y = forward(x, kernel) + sigma_s * n: the kernel and n injected,
+        or drawn from `generator` (kernel first)."""
+        if kernel is None:
+            kernel = self.draw_kernel(generator)
+        return _gaussian_measure(self.forward, self.sigma_s, x, noise,
+                                 generator, kernel=kernel)
+
+
+@register_operator("nonlinear_blur")
+def _build_nonlinear_blur(blur_apply: Optional[Callable] = None,
+                          kernel_shape=(1, 512, 2, 2), sigma_s: float = 0.05,
+                          kernel: Optional[torch.Tensor] = None,
+                          seed: Optional[int] = None, device="cuda", **_):
+    """kernel_shape defaults to the KernelWizard's (1, 512, 2, 2), NCHW
+    (`kdip_tpu`'s (1, 2, 2, 512) is NHWC). forward's kernel is `kernel`,
+    else a N(0, 1.2^2) draw from a generator seeded with `seed` (0 if
+    None)."""
+    if blur_apply is None:
+        raise ValueError("nonlinear_blur needs a blur network callable (the "
+                         "reference loads the external bkse KernelWizard; "
+                         "pass its apply function as blur_apply)")
+    if kernel is None:
+        g = torch.Generator(device=device).manual_seed(
+            0 if seed is None else seed)
+        kernel = torch.randn(tuple(kernel_shape), generator=g,
+                             device=device) * 1.2
+    return NonlinearBlurOperator(blur_apply, kernel.to(device),
+                                 float(np.float32(sigma_s)))
+
+
 def generate_mask(mask_type: str = "random", mask_len_range=None,
                   mask_prob_range=None, image_size: int = 256, margin=(16, 16),
                   num_channels: int = 3, seed: Optional[int] = None) -> np.ndarray:
@@ -319,9 +423,6 @@ def clean_noise(data, noise=None, generator=None):
     return data
 
 
-register_noise("poisson")(_later_slice("noise model 'poisson'"))
-
-
 @register_noise("gaussian")
 def gaussian_noise(data, noise=None, generator=None, sigma: float = 0.05):
     """data + sigma * n, with n injected or drawn from `generator`."""
@@ -329,3 +430,17 @@ def gaussian_noise(data, noise=None, generator=None, sigma: float = 0.05):
         noise = torch.randn(data.shape, generator=generator,
                             device=data.device, dtype=data.dtype)
     return data + sigma * noise
+
+
+@register_noise("poisson")
+def poisson_noise(data, noise=None, generator=None, rate: float = 1.0):
+    """Poisson shot noise on [0, 255]-scaled intensities (ref:
+    measurements.py:413-434, "version 3"; `kdip_tpu` operators.py:474-481):
+    counts ~ Poisson(clip((data + 1) / 2, 0, 1) * 255 * rate), then
+    clip(counts / 255 / rate * 2 - 1, -1, 1). For this model `noise` is
+    the counts, injected, else drawn by torch.poisson from `generator`."""
+    lam = ((data + 1.0) / 2.0).clamp(0, 1) * 255.0 * rate
+    counts = (torch.poisson(lam, generator=generator) if noise is None
+              else noise)
+    noisy = counts.to(data.dtype) / 255.0 / rate
+    return (noisy * 2.0 - 1.0).clamp(-1, 1)

@@ -1,6 +1,6 @@
 """Posterior sampling API (PyTorch port of `kdip_tpu/sampling_api.py:25-148`):
-build the guided denoiser for a measurement and run the Heun sampler over
-the Karras schedule."""
+build the guided denoiser for a measurement and run a Karras sampler (Heun,
+Euler or DPM-Solver++(2M)) over the Karras schedule."""
 
 from __future__ import annotations
 
@@ -12,7 +12,11 @@ import torch
 from . import diffusion as diff
 from . import guidance as gd
 from . import samplers, schedules
+from .autoi import rademacher
 from .operators import Measurement
+
+SAMPLERS = {"heun": samplers.sample_heun, "euler": samplers.sample_euler,
+            "dpmpp_2m": samplers.sample_dpmpp_2m}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,11 +24,13 @@ class SamplerConfig:
     """Sampler settings (defaults = the reference CLI's,
     sample_condition_openai.py:89-92, 186-194). per_sample_map runs each of
     n samples that share one measurement through its own denoiser call, and
-    so its own CG solve, as `kdip_tpu` does by default."""
+    so its own CG solve, as `kdip_tpu` does by default. sampler is "heun",
+    "euler" or "dpmpp_2m" (no churn)."""
     steps: int = 50
     sigma_min: float = 1e-2
     sigma_max: float = 80.0
     rho: float = 7.0
+    sampler: str = "heun"
     ode: bool = False       # True disables churn
     s_churn: float = 80.0
     s_tmin: float = 0.05
@@ -48,6 +54,13 @@ def build_posterior_sampler(model_apply: Callable,
     on `device`; the model, tables, operator and measurement must live
     there.
     """
+    if sampler_cfg.sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler_cfg.sampler!r}")
+    warm = guidance_cfg.cg_warm_start
+    if warm and sampler_cfg.sampler == "dpmpp_2m":
+        # kdip_tpu's assert (sampling_api.py:82-85)
+        raise ValueError("cg_warm_start is carried by the heun and euler "
+                         "samplers, not dpmpp_2m")
     sigmas = schedules.get_sigmas_karras(sampler_cfg.steps,
                                          sampler_cfg.sigma_min,
                                          sampler_cfg.sigma_max,
@@ -58,10 +71,18 @@ def build_posterior_sampler(model_apply: Callable,
     else:
         uncond, var_fn = gd.make_openai_uncond(model_apply, tables,
                                                guidance_cfg, recon_mse)
-    stsl = guidance_cfg.guidance.split("+")[0] == "stsl"
-    churn = {} if sampler_cfg.ode else dict(
-        s_churn=sampler_cfg.s_churn, s_tmin=sampler_cfg.s_tmin,
-        s_tmax=sampler_cfg.s_tmax, s_noise=sampler_cfg.s_noise)
+    base = guidance_cfg.guidance.split("+")[0]
+    if base == "stsl":
+        n_probes, draw = guidance_cfg.num_hutchinson_samples, torch.randn
+    elif base == "autoI":
+        n_probes, draw = guidance_cfg.num_probes, rademacher
+    else:
+        n_probes = 0
+    kw = {}
+    if sampler_cfg.sampler != "dpmpp_2m" and not sampler_cfg.ode:
+        kw = dict(s_churn=sampler_cfg.s_churn, s_tmin=sampler_cfg.s_tmin,
+                  s_tmax=sampler_cfg.s_tmax, s_noise=sampler_cfg.s_noise)
+    sampler_fn = SAMPLERS[sampler_cfg.sampler]
 
     def sample(measurement: Measurement, n: int = 1,
                generator: Optional[torch.Generator] = None,
@@ -70,54 +91,75 @@ def build_posterior_sampler(model_apply: Callable,
                probe_fn: Optional[Callable[[int], Sequence[torch.Tensor]]]
                = None, return_info: bool = False):
         """init_noise (standard normal [n, C, H, W]; scaled by sigma_max
-        here), noise_fn (churn noise per step, see samplers.sample_heun)
-        and probe_fn (stsl's Hutchinson probes of the k-th guided call,
-        probe_fn(k)) inject the randomness; otherwise it comes from
-        `generator`. return_info also returns the info dict of
-        samplers.sample_heun."""
+        here), noise_fn (the Euler and Heun samplers' churn noise per step,
+        see samplers.sample_heun) and probe_fn (stsl's or autoI's probes
+        of the k-th guided call, probe_fn(k)) inject the randomness;
+        otherwise it comes from `generator`. return_info also returns the
+        samplers' info dict. With cg_warm_start every sample carries its
+        own solver state through the trajectory."""
         denoise = gd.make_condition_denoiser(
             uncond, var_fn, operator, measurement, guidance_cfg, v2=v2,
-            with_info=return_info)
+            with_info=return_info or warm, generator=generator)
         mapped = (sampler_cfg.per_sample_map and n > 1
                   and measurement.y.shape[0] == 1)
+        batch = 1 if mapped else n
+        shape = (batch, channels, image_size, image_size)
+        state = None
+        if warm:
+            # n states of batch 1 under the per-sample loop, as kdip_tpu's
+            # lax.map slices one stacked state (sampling_api.py:97-111)
+            state = gd.init_solver_state(operator, shape, device)
+            if mapped:
+                state = [gd.init_solver_state(operator, shape, device)
+                         for _ in range(n)]
         if mapped:
-            denoise = _per_sample(denoise, return_info)
-        if stsl:
-            shape = ((1 if mapped else n), channels, image_size, image_size)
+            denoise = _per_sample(denoise, return_info or warm)
+        if n_probes:
             denoise = _shared_probes(denoise, probe_fn or (
-                lambda k: [torch.randn(shape, generator=generator,
-                                       device=device)
-                           for _ in range(guidance_cfg.num_hutchinson_samples)
-                           ]))
+                lambda k: [draw(shape, generator=generator, device=device)
+                           for _ in range(n_probes)]))
         if init_noise is None:
             init_noise = torch.randn((n, channels, image_size, image_size),
                                      generator=generator, device=device)
         x = init_noise.to(device) * sampler_cfg.sigma_max
-        return samplers.sample_heun(denoise, x, sigmas, noise_fn=noise_fn,
-                                    generator=generator,
-                                    return_info=return_info, **churn)
+        if sampler_cfg.sampler == "dpmpp_2m":
+            return sampler_fn(denoise, x, sigmas, return_info=return_info)
+        out = sampler_fn(denoise, x, sigmas, noise_fn=noise_fn,
+                         generator=generator,
+                         return_info=return_info or warm,
+                         solver_state=state, **kw)
+        return out[0] if warm and not return_info else out
 
     return sample
 
 
 def _per_sample(denoise: Callable, with_info: bool) -> Callable:
     """Runs `denoise` on one sample at a time (`kdip_tpu`'s lax.map,
-    sampling_api.py:110-132), each with the call's keyword arguments; the
-    info reports the worst residual and the summed CG iterations."""
-    def mapped(x, sigma, **kw):
-        outs = [denoise(x[i:i + 1], sigma, **kw) for i in range(x.shape[0])]
+    sampling_api.py:110-132), each with the call's keyword arguments and,
+    with the warm start, its own entry of the list `solver_state`; the
+    info reports the worst residual, the summed CG iterations and the
+    samples' new states."""
+    def mapped(x, sigma, solver_state=None, **kw):
+        outs = []
+        for i in range(x.shape[0]):
+            if solver_state is not None:
+                kw["solver_state"] = solver_state[i]
+            outs.append(denoise(x[i:i + 1], sigma, **kw))
         if not with_info:
             return torch.cat(outs)
-        return torch.cat([o for o, _ in outs]), {
-            "cg_resid": max(info["cg_resid"] for _, info in outs),
-            "cg_iters": sum(info["cg_iters"] for _, info in outs)}
+        infos = [info for _, info in outs]
+        info = {"cg_resid": max(i["cg_resid"] for i in infos),
+                "cg_iters": sum(i["cg_iters"] for i in infos)}
+        if solver_state is not None:
+            info["solver_state"] = [i["solver_state"] for i in infos]
+        return torch.cat([o for o, _ in outs]), info
     return mapped
 
 
 def _shared_probes(denoise: Callable, probe_fn: Callable) -> Callable:
-    """stsl's probes, drawn once per guided call (probe_fn(k) for the k-th)
-    and given to every sample of it, as `kdip_tpu`'s lax.map passes one
-    key, and so one set of probes, to every sample of a call
+    """stsl's or autoI's probes, drawn once per guided call (probe_fn(k)
+    for the k-th) and given to every sample of it, as `kdip_tpu`'s lax.map
+    passes one key, and so one set of probes, to every sample of a call
     (sampling_api.py:126-132)."""
     calls = 0
 

@@ -95,17 +95,27 @@ def test_denoise_matches(name):
 
 
 def test_unported_modes_raise():
-    """What later slices port raises: autoI guidance (with every
-    covariance), the nonlinear operators (on either device) and the
-    poisson noise model."""
+    """What the port still refuses, as kdip_tpu does: autoI with the tmpd
+    covariance (its variance needs a vjp autoI does not take; every other
+    covariance builds), Type-I guidance through an operator without a mat
+    solver, the nonlinear blur without its network, and an unknown noise
+    model."""
     y = P.operators.Measurement(y=torch.zeros(1, 3, S, S))
     for cov in ("convert", "pgdm", "dps", "diffpir", "analytic"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            P.guidance.make_condition_denoiser(
-                None, None, None, y, P.guidance.GuidanceConfig("autoI", cov))
-    for name in ("phase_retrieval", "nonlinear_blur"):
-        for device in ("cpu", "cuda"):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                P.operators.get_operator(name, device=device)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        P.operators.get_noise("poisson")(torch.zeros(1, 3, S, S))
+        P.guidance.make_condition_denoiser(
+            None, None, None, y, P.guidance.GuidanceConfig("autoI", cov))
+    with pytest.raises(ValueError, match="tmpd"):
+        P.guidance.make_condition_denoiser(
+            None, None, None, y, P.guidance.GuidanceConfig("autoI", "tmpd"))
+    op = P.operators.get_operator("phase_retrieval", device="cpu")
+    x = torch.zeros(1, 3, S, S)
+    den = P.guidance.make_condition_denoiser(
+        lambda x, s: (x, {}), lambda *a: 0.5, op, y,
+        P.guidance.GuidanceConfig("I", "pgdm"))
+    with pytest.raises(NotImplementedError, match="no mat solver"):
+        den(x, 0.5)
+    for device in ("cpu", "cuda"):
+        with pytest.raises(ValueError, match="blur_apply"):
+            P.operators.get_operator("nonlinear_blur", device=device)
+    with pytest.raises(NameError, match="speckle"):
+        P.operators.get_noise("speckle")

@@ -127,11 +127,19 @@ def test_inpainting_operator_matches():
 
 @pytest.mark.parametrize("name", ["phase_retrieval", "nonlinear_blur"])
 def test_unported_operators_raise(name):
-    """The nonlinear operators come with the nonlinear guidance (ROADMAP
-    queue 1, item 8); the linear ones are held to kdip_tpu in
+    """The nonlinear operators are ported (tests/test_torch_nonlinear.py),
+    but they have no mat solver, in kdip_tpu as in the reference: a solve
+    through one raises; the linear ones are held to kdip_tpu in
     test_torch_operators_blur_sr.py."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tops.get_operator(name, device="cpu")
+    kw = {"blur_apply": lambda x01, kernel: x01,
+          "kernel_shape": (1, 4, 2, 2)} if name == "nonlinear_blur" else {}
+    op = tops.get_operator(name, device="cpu", **kw)
+    assert op.name == name
+    from kdip_tpu_torch import guidance as tg
+    x = torch.zeros(1, 3, 8, 8)
+    with pytest.raises(NotImplementedError, match="no mat solver"):
+        tg.mat_solver(op, op.forward(x), x, 0.5, None, True,
+                      tg.GuidanceConfig())
 
 
 def test_gaussian_noise_injected():
