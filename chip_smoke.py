@@ -26,6 +26,10 @@ each printing one JSON line:
    50-step Heun with churn, 4 samples against one measurement; the DWT
    launch counts are reset just before and read just after, and the fused
    matvec's must be the CG iterations plus one per CG solve;
+3a. slice_dwt_var_batched: the same seeds with per_sample_map=False (the
+   4 samples as one batch through the UNet, the vjp and one CG solve per
+   guided call), its ms/NFE beside the per-sample twin's; the fused
+   matvec's launches are again the CG iterations plus one per solve;
 4. one guided NFE below the threshold, with the kernel DWT and with the
    plain DWT, compared; the kernel run is traced with torch.profiler for
    the device's busy share and its top kernels;
@@ -40,7 +44,8 @@ each printing one JSON line:
    (`denoise.loglikelihood`, 8 probes of 25 Lanczos steps, kernel
    against plain);
 5. slice, Convert: the V1 ADMUNet, Type-I guidance with the Convert
-   covariance, the same sampler;
+   covariance, the same sampler; 5a. slice_convert_batched, its batched
+   twin (per_sample_map=False);
 6. kernels_winograd: both entry points of the Winograd F(2,3) kernel
    against its plain version in bf16, with and without the fused
    prologue, at [1,128,256,256]->128, [1,1024,8,8]->512, a C and F that
@@ -61,7 +66,8 @@ each printing one JSON line:
    beside cuDNN's direct conv (one torch.profiler trace for all shapes)
    and the bound; then a line that sums them per level (H) and per NFE;
 10. slices on the other operators of bench.py's grid, each Heun-50 with
-   churn, n samples against one measurement, operators from configs/:
+   churn, n=4 samples against one measurement, operators from configs/
+   (read by `config.load_yaml`, as every operator file here):
    gaussian deblur with Convert (no DWT or Winograd launch), the same
    with the CG warm start (`cg_warm_start`; its CG iterations and ms/NFE
    beside the cold slice's), motion deblur with Convert (the PSF loaded
@@ -92,8 +98,24 @@ each printing one JSON line:
    slice_phase_retrieval_dps (Euler-50, oversample 1.0: 320 px FFTs) and
    slice_nonlinear_blur_dps (DPM++(2M)-25, poisson noise on y, a small
    seeded blur network built here);
-16. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   4a, 7, 10 and 12), its error, its time against its plain version's, its
+16. the guided-sampling CLI (`kdip_tpu_torch.cli.sample_condition.main`,
+   in-process, at full width, Heun-50, -n 1, bf16, --save-img, LPIPS on
+   seeded random VGG16 weights in kdip_tpu's npz), on inpainting from
+   configs/inpainting_config.yaml, over seeded 256 px PNGs written by the
+   port's writer, with a checkpoint of seeded random weights:
+   cli_dwt_var (configs/test_ffhq_dwt.json --v2, a Lightning .ckpt, 2
+   images; the fused matvec's launches the CG iterations plus one per
+   solve, no standalone DWT) and cli_convert_winograd
+   (configs/test_ffhq.json --winograd, a guided-diffusion .pt, 1 image;
+   65 plain + 55 fused Winograd launches per NFE). Each checks finite
+   metrics, samples in [-1, 1] and the CG summary line, then reruns with
+   --resume, which must run no image and reproduce avg_metrics' psnr,
+   ssim and lpips bit for bit; it reports the wall time per image, peak
+   memory and LPIPS's time per image;
+17. bench_torch: `python3 bench_torch.py` (the default workload) as a
+   subprocess, its JSON line with bench.py's keys;
+18. the `kernels` line: per kernel, its launches in its slices (phases 3,
+   3a, 4a, 7, 10, 12 and 16), its error, its time against its plain version's, its
    bound and, for the Winograd kernels, cuDNN's direct conv, at the
    slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
@@ -112,6 +134,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -122,23 +145,17 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE = 256          # FFHQ-256
 STEPS = 50          # SamplerConfig's default: Heun-50
-# configs/inpainting_config.yaml
-INPAINTING = dict(name="inpainting", sigma_s=0.05,
-                  mask_opt=dict(mask_type="random", mask_prob_range=(0.5, 0.5),
-                                image_size=256))
 N_SAMPLES = 4
+CLI_DWT_IMAGES = 2              # cli_dwt_var's test images
+CLI_WINO_IMAGES = 1             # cli_convert_winograd's
 # tmpd's slice runs one sample: with random weights its CG runs the whole
 # 1000-iteration budget at most NFEs, so it took 209 of the script's 762 s
 # at n=4 (H100 80GB HBM3, 700 W), and the script aims at half its time
 # limit
 TMPD_N = 1
-# the motion-blur PSF of configs/motion_deblur_config.yaml, drawn with seed 0
-# where PIL is installed (tests/test_torch_fft_ops.py pins it)
-MOTION_PSF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "kdip_tpu_torch", "data",
-                          "motion_ks61_i0.5_seed0.npy")
 BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
 TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
 STSL_NFE_SIGMA = 0.5            # phase 14's stsl NFE
@@ -205,24 +222,10 @@ def emit(obj) -> None:
 
 
 def load_op_config(fname: str, **overrides) -> dict:
-    """An operator yaml of configs/ (flat `key: value` lines, JSON values or
-    bare strings, # comments), read without PyYAML, which the card's
-    machine may lack."""
-    cfg = {}
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "configs", fname)
-    with open(path) as f:
-        for line in f:
-            line = line.split("#", 1)[0].strip()
-            if not line:
-                continue
-            key, value = (p.strip() for p in line.split(":", 1))
-            try:
-                cfg[key] = json.loads(value)
-            except json.JSONDecodeError:
-                cfg[key] = value
-    cfg.update(overrides)
-    return cfg
+    """An operator yaml of configs/, read by `config.load_yaml` (the YAML
+    subset; the card's machine may lack PyYAML), with `overrides`."""
+    from kdip_tpu_torch import config
+    return dict(config.load_yaml(config_path(fname)), **overrides)
 
 
 def nvidia_smi() -> str:
@@ -230,25 +233,6 @@ def nvidia_smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
-
-
-def randomize_(model, seed: int, std: float = 0.02):
-    """Draws every parameter from a seeded numpy generator, zero-initialised
-    layers included (out.2, the ResBlock out_layers.3, proj_out), or eps is
-    identically 0 and the run proves nothing: GroupNorm weights
-    1 + std*N(0,1), everything else std*N(0,1)."""
-    import torch
-    from kdip_tpu_torch.models.layers import GroupNorm32
-    norm_weights = {f"{n}.weight" for n, m in model.named_modules()
-                    if isinstance(m, GroupNorm32)}
-    rng = np.random.default_rng(seed)
-    with torch.no_grad():
-        for name, p in sorted(model.named_parameters()):
-            v = std * rng.standard_normal(p.shape, dtype=np.float32)
-            if name in norm_weights:
-                v += 1.0
-            p.copy_(torch.from_numpy(v))
-    return model
 
 
 class PlainDWT:
@@ -503,43 +487,7 @@ def phase_kernels_winograd(dev):
 
 
 def config_path(name: str) -> str:
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "configs", name)
-
-
-def build_slice(dev, v2: bool, seed: int, winograd: bool = False,
-                op_cfg=None, model_config=None, measure=None):
-    """(model, tables, operator, measurement) of one configuration at full
-    width: ffhq_unet (+ the out_cov head for v2), or the model the CLI
-    builds from a configs/ file (`config.make_openai_model`: with winograd
-    configs/test_ffhq.json, winograd=True; else `model_config`), weights
-    from `seed`, bf16 torso with the norm parameters in float32; the
-    operator from `op_cfg` (default: p=0.5 inpainting), the measurement of
-    a random image (`measure(op, x, generator)`, else op.measure)."""
-    import torch
-    from kdip_tpu_torch import config, diffusion, operators, weights
-    from kdip_tpu_torch.models import adm
-    if winograd or model_config:
-        cfg = config.load_config(config_path(model_config or "test_ffhq.json"))
-        model, tables = config.make_openai_model(cfg["model"],
-                                                 winograd=winograd,
-                                                 device=dev)
-    else:
-        model = adm.ffhq_unet(device=dev)
-        tables = diffusion.make_diffusion(1000, "linear", device=dev)
-    if v2:
-        model = adm.ADMUNetV2(model)
-    randomize_(model, seed)
-    weights.precast_inference(model).eval().requires_grad_(False)
-    if op_cfg is None:
-        op_cfg = dict(INPAINTING, mask_opt=dict(INPAINTING["mask_opt"],
-                                                image_size=SIZE))
-    op = operators.get_operator(seed=0, device=dev, **op_cfg)
-    g = torch.Generator(device=dev).manual_seed(seed + 100)
-    x_true = torch.rand(1, 3, SIZE, SIZE, generator=g, device=dev) * 2 - 1
-    meas = (measure or (lambda o, x, gen: o.measure(x, generator=gen)))(
-        op, x_true, g)
-    return model, tables, op, meas, x_true
+    return os.path.join(ROOT, "configs", name)
 
 
 def guided_nfes_below(thres: float) -> int:
@@ -572,26 +520,31 @@ def winograd_per_nfe(model):
 def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
               winograd: bool = False, op_cfg=None, model_config=None,
               ode: bool = False, recon_mse=None, sampler: str = "heun",
-              steps: int = 0, measure=None):
+              steps: int = 0, measure=None, per_sample_map: bool = True):
     """`sampler` for `steps` (0: STEPS) steps, Heun-50 by default (with
-    churn unless `ode` or dpmpp_2m), n samples against one measurement;
-    returns the phase record
-    (and the measurement pieces for the NFE phases). CG's non-convergence
-    warnings are counted, not printed."""
+    churn unless `ode` or dpmpp_2m), n samples against one measurement,
+    one at a time (per_sample_map) or as one batch; returns the phase
+    record (and the measurement pieces for the NFE phases). The slice is
+    built by `bench_torch.build`, the benchmark's own builder (default
+    operator: p=0.5 inpainting), so slice_convert and bench_torch.py's
+    default row are one workload. CG's non-convergence warnings are
+    counted, not printed."""
     import warnings
 
     import torch
+
+    import bench_torch
     from kdip_tpu_torch import sampling_api
     from kdip_tpu_torch.ops import dwt as D
     from kdip_tpu_torch.ops import winograd as Wg
-    model, tables, op, meas, x_true = build_slice(dev, v2, seed, winograd,
-                                                  op_cfg, model_config,
-                                                  measure)
     scfg = sampling_api.SamplerConfig(steps=steps or STEPS, ode=ode,
-                                      sampler=sampler)
-    sampler = sampling_api.build_posterior_sampler(
-        model, tables, op, gcfg, scfg, recon_mse=recon_mse, v2=v2,
-        image_size=SIZE, device=dev)
+                                      sampler=sampler,
+                                      per_sample_map=per_sample_map)
+    sampler, parts = bench_torch.build(
+        dev, gcfg, seed, op_cfg or load_op_config("inpainting_config.yaml"),
+        scfg, v2=v2, winograd=winograd, model_config=model_config,
+        measure=measure, recon_mse=recon_mse)
+    model, tables, op, meas, x_true = parts
     g = torch.Generator(device=dev).manual_seed(seed + 200)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -613,7 +566,8 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
            "sampler": scfg.sampler,
            "x0_cov_type": None if v2 else gcfg.x0_cov_type,
            "ortho_tf_type": gcfg.ortho_tf_type, "v2": v2, "ode": ode,
-           "n": n, "steps": scfg.steps, "operator": op.name,
+           "n": n, "per_sample_map": per_sample_map, "steps": scfg.steps,
+           "operator": op.name,
            "y_shape": list(meas.y.shape),
            "wall_s": wall, "samples_per_s": n / wall, "nfe": nfe,
            "ms_per_nfe": 1e3 * wall / nfe,
@@ -644,7 +598,7 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
                                  f", predicted {want}")
     elif sum(wino_launches.values()):
         raise AssertionError(f"{name} launched the Winograd kernel")
-    return rec, (model, tables, op, meas, x_true)
+    return rec, parts
 
 
 def phase_nfe_compare(dev, gcfg, parts):
@@ -958,19 +912,16 @@ def run_blur_sr_slices(dev, n: int = N_SAMPLES):
     the DWT launch counts of the DWT-Var deblur slice, and per NFE phase of
     phase 11 its (guidance config, v2, slice pieces)."""
     import torch
+
+    import bench_torch
     from kdip_tpu_torch import guidance as gd
     convert = gd.GuidanceConfig("I", "convert")
     blur = load_op_config("gaussian_deblur_config.yaml")
 
-    def no_dwt(rec):
-        if sum(rec["dwt_launches"].values()):
-            raise AssertionError(f"{rec['phase']} launched the DWT kernel: "
-                                 f"{rec['dwt_launches']}")
-
     rec, _ = run_slice("slice_gaussian_deblur_convert", dev, False, convert,
                        seed=3, n=n, op_cfg=blur)
     emit(rec)
-    no_dwt(rec)
+    check_no_dwt(rec)
     # the same slice (weights, measurement, draws) with the CG warm start
     warm, _ = run_slice("slice_gaussian_deblur_convert_warm", dev, False,
                         gd.GuidanceConfig("I", "convert", cg_warm_start=True),
@@ -980,16 +931,16 @@ def run_blur_sr_slices(dev, n: int = N_SAMPLES):
     warm["cg_iters_warm_over_cold"] = (warm["cg_total_iters"]
                                        / rec["cg_total_iters"])
     emit(warm)
-    no_dwt(warm)
+    check_no_dwt(warm)
 
     rec, parts = run_slice("slice_motion_deblur_convert", dev, False, convert,
                            seed=4, n=n, op_cfg=load_op_config(
                                "motion_deblur_config.yaml",
-                               kernel_path=MOTION_PSF))
+                               kernel_path=bench_torch.MOTION_PSF))
     k = parts[2].kernel
     rec["psf"] = {"shape": list(k.shape), "sum": float(k.double().sum())}
     emit(rec)
-    no_dwt(rec)
+    check_no_dwt(rec)
     if tuple(k.shape) != (61, 61) or abs(rec["psf"]["sum"] - 1) > 1e-5:
         raise AssertionError(f"motion PSF {rec['psf']}")
     del parts
@@ -998,7 +949,7 @@ def run_blur_sr_slices(dev, n: int = N_SAMPLES):
                        op_cfg=load_op_config(
                            "super_resolution_4x_config.yaml"))
     emit(rec)
-    no_dwt(rec)
+    check_no_dwt(rec)
     if rec["y_shape"] != [1, 3, SIZE // 4, SIZE // 4]:
         raise AssertionError(f"SR measurement {rec['y_shape']}")
 
@@ -1007,7 +958,7 @@ def run_blur_sr_slices(dev, n: int = N_SAMPLES):
                                      False, tmpd_cfg, seed=6, n=TMPD_N,
                                      op_cfg=blur)
     emit(tmpd_rec)
-    no_dwt(tmpd_rec)
+    check_no_dwt(tmpd_rec)
     # a CG solve at every NFE, each at least one iteration
     if tmpd_rec["cg_total_iters"] < tmpd_rec["nfe"]:
         raise AssertionError(f"tmpd: {tmpd_rec['cg_total_iters']} CG "
@@ -1415,6 +1366,251 @@ def run_nonlinear_slices(dev):
     return {rec["phase"]: rec["dwt_launches"] for rec in (pr, nb)}
 
 
+def run_batched_twin(name, twin, dev, v2: bool, gcfg, seed: int):
+    """The `twin` slice's configuration and seeds with per_sample_map=False:
+    the n samples go through the UNet, the vjp and the CG as one batch of
+    n, one solve per guided call. Emits the record, with the per-sample
+    twin's numbers and the batched/per-sample ms/NFE ratio beside it."""
+    rec, _ = run_slice(name, dev, v2, gcfg, seed=seed, n=twin["n"],
+                       per_sample_map=False)
+    rec["per_sample"] = {k: twin[k] for k in (
+        "ms_per_nfe", "samples_per_s", "cg_total_iters", "cg_max_residual",
+        "peak_mem_gib")}
+    rec["batched_over_per_sample_ms"] = rec["ms_per_nfe"] / twin["ms_per_nfe"]
+    emit(rec)
+    return rec
+
+
+def random_lpips_npz(path: str, seed: int = 0) -> None:
+    """Seeded random LPIPS-VGG weights in the npz that `kdip_tpu`'s
+    --lpips-weights reads: its param tree (HWIO conv kernels, He-scaled;
+    non-negative lin weights) under "params"."""
+    from kdip_tpu_torch.metrics import VGG16_CFG
+    rng = np.random.default_rng(seed)
+    params, c_in, i = {}, 3, 0
+    for c in VGG16_CFG:
+        if c == "M":
+            continue
+        params[f"conv{i}"] = {
+            "kernel": (rng.standard_normal((3, 3, c_in, c), np.float32)
+                       * np.float32(np.sqrt(2.0 / (9 * c_in)))),
+            "bias": 0.01 * rng.standard_normal(c, np.float32)}
+        c_in, i = c, i + 1
+    for j, c in enumerate((64, 128, 256, 512, 512)):
+        params[f"lin{j}"] = {
+            "kernel": np.abs(0.1 * rng.standard_normal(c, np.float32))}
+    np.savez(path, params=np.array(params, dtype=object))
+
+
+def cli_inputs(tmp: str, name: str, config_name: str, v2: bool, seed: int,
+               n_images: int):
+    """A run's inputs in `tmp`: n_images seeded 256 px PNGs written by the
+    port's writer, a copy of configs/`config_name` whose dataset points at
+    them, and a checkpoint of seeded random weights (std 0.02) of the
+    configured model: a guided-diffusion .pt, or with v2 a Lightning .ckpt
+    of ADMUNetV2 under `model_ema.`. Returns (config path, checkpoint path,
+    the Winograd launches per guided NFE of that model)."""
+    import torch
+    from kdip_tpu_torch import config, data, weights
+    from kdip_tpu_torch.models import adm
+    root = os.path.join(tmp, name)
+    os.makedirs(os.path.join(root, "val"))
+    rng = np.random.default_rng(seed)
+    for i in range(n_images):
+        data.write_png(os.path.join(root, "val", f"{i:05d}.png"),
+                       rng.integers(0, 256, (SIZE, SIZE, 3), np.uint8))
+    cfg = config.load_config(config_path(config_name))
+    cfg["dataset"] = dict(cfg["dataset"], location=os.path.join(root, "val"))
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    model, _ = config.make_openai_model(cfg["model"], device="cpu")
+    per_nfe = winograd_per_nfe(model)
+    if v2:
+        model = adm.ADMUNetV2(model)
+    sd = weights.randomize_(model, seed).state_dict()
+    if v2:
+        ckpt = os.path.join(root, "model.ckpt")
+        torch.save({"state_dict": {f"model_ema.{k}": v
+                                   for k, v in sd.items()}}, ckpt)
+    else:
+        ckpt = os.path.join(root, "model.pt")
+        torch.save(sd, ckpt)
+    return cfg_path, ckpt, per_nfe
+
+
+class CliProbe:
+    """Records what one in-process CLI run does, with the module functions
+    it calls wrapped for the run: every sampler call's CG info and output
+    range (sampling_api.build_posterior_sampler), LPIPS's device time
+    (metrics.lpips_vgg, synchronised), the run's stdout, peak memory and
+    the kernels' launch counts, reset just before `main`."""
+
+    def __init__(self):
+        self.calls, self.lpips_s, self.stdout = [], [], ""
+
+    def run(self, argv):
+        import contextlib
+        import io
+
+        import torch
+        from kdip_tpu_torch import metrics, sampling_api
+        from kdip_tpu_torch.cli import sample_condition
+        from kdip_tpu_torch.ops import dwt as D
+        from kdip_tpu_torch.ops import winograd as Wg
+        build, lpips = sampling_api.build_posterior_sampler, metrics.lpips_vgg
+
+        def built(*a, **kw):
+            sample = build(*a, **kw)
+
+            def recorded(*sa, **skw):
+                out, info = sample(*sa, **skw)
+                self.calls.append({
+                    "n": out.shape[0], "cg_total_iters": info["cg_total_iters"],
+                    "cg_max_residual": info["cg_max_residual"],
+                    "finite": bool(torch.isfinite(out).all()),
+                    "max_abs_out": out.abs().max().item()})
+                return out, info
+            return recorded
+
+        def timed_lpips(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lpips(*a, **kw)
+            torch.cuda.synchronize()
+            self.lpips_s.append(time.perf_counter() - t0)
+            return out
+        sampling_api.build_posterior_sampler = built
+        metrics.lpips_vgg = timed_lpips
+        buf = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            D.reset_launch_counts()
+            Wg.reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                avg = sample_condition.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            sampling_api.build_posterior_sampler = build
+            metrics.lpips_vgg = lpips
+            self.stdout = buf.getvalue()
+        self.dwt_launches = dict(D.launch_counts)
+        self.winograd_launches = dict(Wg.launch_counts)
+        self.peak_mem_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        return avg
+
+
+def run_cli(name, tmp, lpips_npz, config_name, v2: bool, winograd: bool,
+            n_images: int, seed: int):
+    """`kdip_tpu_torch.cli.sample_condition.main` in-process at full width
+    on inpainting (configs/inpainting_config.yaml): Heun-50 with churn, -n
+    1, bf16 torso, --save-img, LPIPS; then the same logdir with --resume,
+    which must run no image and reproduce avg_metrics' psnr, ssim and
+    lpips bit for bit. Checks every image's metrics are finite and its
+    samples finite and in [-1, 1]; with v2 the fused matvec's launches are
+    the run's CG iterations plus one per solve and no standalone DWT
+    launches; with winograd, 65 plain + 55 fused launches per guided NFE.
+    The CLI runs on its default device, the card. Returns the record and
+    the first run's probe."""
+    from kdip_tpu_torch import config
+    cfg_path, ckpt, per_nfe = cli_inputs(tmp, name, config_name, v2, seed,
+                                         n_images)
+    logdir = os.path.join(tmp, name, "logs")
+    argv = ["--checkpoint", ckpt, "--config", cfg_path,
+            "--operator-config", config_path("inpainting_config.yaml"),
+            "--logdir", logdir, "--steps", str(STEPS), "-n", "1",
+            "--dtype", "bfloat16", "--save-img", "--lpips-weights",
+            lpips_npz, "--seed", str(seed)]
+    argv += ["--v2"] if v2 else []
+    argv += ["--winograd"] if winograd else []
+    probe = CliProbe()
+    avg = probe.run(argv)
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f][1:]
+    pngs = sorted(p for p in os.listdir(logdir) if p.endswith(".png"))
+    cg_line = [ln for ln in probe.stdout.splitlines()
+               if ln.startswith("CG solves:")]
+    iters = sum(c["cg_total_iters"] for c in probe.calls)
+    nfe = n_images * (2 * STEPS - 1)
+    rec = {"phase": name, "config": config_name, "v2": v2,
+           "winograd": winograd, "images": n_images, "steps": STEPS,
+           "wall_clock_per_image": avg["wall_clock_per_image"],
+           "ms_per_nfe": 1e3 * avg["wall_clock_per_image"] * n_images / nfe,
+           "avg_metrics": {k: v for k, v in avg.items() if k != "lpips_note"},
+           "per_image": rows, "cg_line": cg_line,
+           "cg_total_iters": iters, "sampler_calls": probe.calls,
+           "peak_mem_gib": probe.peak_mem_gib,
+           "lpips_ms_per_image": 1e3 * sum(probe.lpips_s) / n_images,
+           "dwt_launches": probe.dwt_launches,
+           "winograd_launches": probe.winograd_launches,
+           "saved_pngs": len(pngs)}
+    if len(rows) != n_images or len(probe.calls) != n_images:
+        raise AssertionError(f"{name}: {len(rows)} journal lines, "
+                             f"{len(probe.calls)} sampler calls")
+    if not all(np.isfinite(r[k]) for r in rows for k in ("psnr", "ssim",
+                                                          "lpips")):
+        raise AssertionError(f"{name}: a metric is not finite: {rows}")
+    for c in probe.calls:
+        # the last Euler step's rounding may pass 1 by float32 ulps
+        if not c["finite"] or c["max_abs_out"] > 1 + 1e-5:
+            raise AssertionError(f"{name}: sample out of [-1, 1]: {c}")
+    if len(cg_line) != 1 or len(pngs) != 2 * n_images:
+        raise AssertionError(f"{name}: CG line {cg_line}, {len(pngs)} PNGs")
+    solves = n_images * guided_nfes_below(1.0) if v2 else 0
+    want_dwt = {"haar_dwt2": 0, "haar_idwt2": 0, "haar_ot_matvec":
+                iters + solves if v2 else 0}
+    want_wino = ({k: v * nfe for k, v in per_nfe.items()} if winograd
+                 else {k: 0 for k in probe.winograd_launches})
+    rec["cg_solves"] = solves
+    if probe.dwt_launches != want_dwt or probe.winograd_launches != want_wino:
+        raise AssertionError(f"{name}: launches {probe.dwt_launches} "
+                             f"{probe.winograd_launches}, expected "
+                             f"{want_dwt} {want_wino}")
+    if winograd and per_nfe != {"winograd_conv3x3": 65,
+                                "winograd_conv3x3_fused": 55}:
+        raise AssertionError(f"{name}: {per_nfe} Winograd launches per NFE")
+
+    again = CliProbe()
+    avg2 = again.run(argv + ["--resume"])
+    same = {k: avg2[k] == avg[k] for k in ("psnr", "ssim", "lpips")}
+    rec["resume"] = {"sampler_calls": len(again.calls),
+                     "dwt_launches": again.dwt_launches,
+                     "winograd_launches": again.winograd_launches,
+                     "bit_equal": same}
+    if (again.calls or sum(again.dwt_launches.values())
+            or sum(again.winograd_launches.values()) or not all(same.values())
+            or "resume: {} images already done".format(n_images)
+            not in again.stdout):
+        raise AssertionError(f"{name}: --resume {rec['resume']}")
+    saved = config.load_yaml(os.path.join(logdir, "avg_metrics.yaml"))
+    if saved["psnr"] != avg["psnr"]:
+        raise AssertionError(f"{name}: avg_metrics.yaml {saved}")
+    emit(rec)
+    return rec, probe
+
+
+def phase_bench_torch(timeout_s: int = 600):
+    """`python3 bench_torch.py` (the default workload) as a subprocess; its
+    JSON line, which must carry bench.py's keys, becomes this phase's."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
+                       capture_output=True, text=True, timeout=timeout_s,
+                       cwd=ROOT)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_torch.py: rc {r.returncode}, "
+                             f"{r.stderr[-2000:]}")
+    res = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "baseline_source",
+            "tflops_sustained", "mfu", "cg_max_residual", "mfu_method"}
+    if not keys <= res.keys() or not res["value"] > 0:
+        raise AssertionError(f"bench_torch.py printed {res}")
+    emit({"phase": "bench_torch", "wall_s": time.perf_counter() - t0,
+          "result": res})
+    return res
+
+
 def winograd_launch_shapes(model, dev):
     """{(entry point, B, C, F, H, W): launches} of one UNet forward and its
     vjp at B = 1, as a guided NFE runs them under the per-sample loop,
@@ -1705,6 +1901,16 @@ def main() -> int:
             or launches["haar_idwt2"]):
         raise AssertionError(f"DWT-Var: {launches['haar_ot_matvec']} fused "
                              f"matvec launches, expected {want}")
+    batched = timed("slice_dwt_var_batched", run_batched_twin,
+                    "slice_dwt_var_batched", rec, dev, True, dwt_cfg, seed=0)
+    batched_launches = batched["dwt_launches"]
+    # one solve per guided call below the threshold for the whole batch
+    want = batched["cg_total_iters"] + guided_nfes_below(
+        dwt_cfg.mle_sigma_thres)
+    if batched_launches != {"haar_dwt2": 0, "haar_idwt2": 0,
+                            "haar_ot_matvec": want}:
+        raise AssertionError(f"batched DWT-Var: launches {batched_launches}"
+                             f", expected {want} fused matvecs")
 
     timed("nfe_kernel_vs_plain_dwt", phase_nfe_compare, dev, dwt_cfg, parts)
     del parts
@@ -1722,6 +1928,10 @@ def main() -> int:
     rec, _ = timed("slice_convert", run_slice, "slice_convert", dev, False,
                    convert_cfg, seed=1, n=N_SAMPLES)
     emit(rec)
+    batched = timed("slice_convert_batched", run_batched_twin,
+                    "slice_convert_batched", rec, dev, False, convert_cfg,
+                    seed=1)
+    check_no_dwt(batched)
 
     timed("kernels_winograd", phase_kernels_winograd, dev)
     rec, parts = timed("slice_convert_winograd", run_slice,
@@ -1745,6 +1955,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     by_slice = {"slice_dwt_var": launches,
+                "slice_dwt_var_batched": batched_launches,
                 "slice_autoI_dwt_var": autoi_launches,
                 "slice_gaussian_deblur_dwt_var": deblur_launches}
     by_slice.update(timed("type_ii_and_dct_slices",
@@ -1763,16 +1974,34 @@ def main() -> int:
     del parts
     torch.cuda.empty_cache()
     by_slice.update(timed("nonlinear_slices", run_nonlinear_slices, dev))
+    torch.cuda.empty_cache()
+
+    wino_by_slice = {"slice_convert_winograd": wino_launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        lpips_npz = os.path.join(tmp, "lpips_vgg.npz")
+        random_lpips_npz(lpips_npz)
+        for name, cfg_name, v2, wino, n_images, seed in (
+                ("cli_dwt_var", "test_ffhq_dwt.json", True, False,
+                 CLI_DWT_IMAGES, 20),
+                ("cli_convert_winograd", "test_ffhq.json", False, True,
+                 CLI_WINO_IMAGES, 21)):
+            _, probe = timed(name, run_cli, name, tmp, lpips_npz, cfg_name,
+                             v2, wino, n_images, seed)
+            by_slice[name] = probe.dwt_launches
+            wino_by_slice[name] = probe.winograd_launches
+            torch.cuda.empty_cache()
+    timed("bench_torch", phase_bench_torch)
 
     rows = timed("kernel_rows", kernel_rows, dev, {
         k: sum(c[k] for c in by_slice.values()) for k in launches})
     for row in rows:
         row["launches_by_slice"] = {s: c[row["name"]]
                                     for s, c in by_slice.items()}
-    wrows = timed("wino_kernel_rows", wino_kernel_rows, dev, wino_launches)
+    wrows = timed("wino_kernel_rows", wino_kernel_rows, dev, {
+        k: sum(c[k] for c in wino_by_slice.values()) for k in wino_launches})
     for row in wrows:
-        row["launches_by_slice"] = {"slice_convert_winograd":
-                                    wino_launches[row["name"]]}
+        row["launches_by_slice"] = {s: c[row["name"]]
+                                    for s, c in wino_by_slice.items()}
     emit({"kernels": rows + wrows})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start,
           "phase_seconds": seconds})

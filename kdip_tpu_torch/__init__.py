@@ -7,8 +7,9 @@ CUDA kernels live under `csrc/` and are built with nvcc at first use
 (`ops/_build.py`).
 """
 
-from . import (autoi, config, diffusion, guidance, operators,  # noqa: F401
-               precond, samplers, sampling_api, schedules, weights)
+from . import (autoi, ckpt, config, data, diffusion,  # noqa: F401
+               guidance, metrics, operators, precond, samplers,
+               sampling_api, schedules, weights)
 from .models import adm, layers  # noqa: F401
 from .ops import (dwt, fft, kernels, resize, transforms,  # noqa: F401
                   winograd)

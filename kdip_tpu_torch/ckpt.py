@@ -1,0 +1,65 @@
+"""Checkpoint loading (PyTorch port of `kdip_tpu/ckpt.py:289-307` and of the
+CLI's prefix handling, `kdip_tpu/cli/sample_condition.py:160-177`).
+
+A guided-diffusion `.pt` state dict loads into `models.adm.ADMUNet` as it
+is (`load_adm`); a Lightning DWT/DCT-Var checkpoint nests
+`inner_model.*` and `out_cov.*` under `model_ema.` or `model.`
+(`load_v2`). Both load strictly, so a misnamed key fails loudly. A
+directory checkpoint is `kdip_tpu`'s orbax format, which needs JAX: the
+port refuses it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping
+
+import torch
+
+from .models.adm import ADMUNet, ADMUNetV2
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """A .pt/.ckpt file, loaded on the CPU, as a flat state dict; a
+    Lightning checkpoint's {"state_dict": ...} is unwrapped (ref:
+    train_openai.py:56-88). As in kdip_tpu, the whole pickle is read
+    (weights_only=False): a Lightning file's hyper_parameters, callbacks
+    and loops may hold objects beyond tensors and plain containers. So a
+    checkpoint is trusted as code is."""
+    if os.path.isdir(path):
+        raise SystemExit(
+            f"{path} is a directory: an orbax checkpoint of kdip_tpu, which "
+            "only JAX reads. Give the port a torch .pt/.ckpt file (the "
+            "PyTorch port has no orbax reader)")
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        return obj["state_dict"]
+    return obj
+
+
+def strip_prefix(state_dict: Mapping[str, Any], prefix: str
+                 ) -> Dict[str, Any]:
+    return {k[len(prefix):]: v for k, v in state_dict.items()
+            if k.startswith(prefix)}
+
+
+def load_adm(model: ADMUNet, sd: Mapping[str, torch.Tensor]) -> ADMUNet:
+    """Loads a guided-diffusion UNet state dict, strictly. Returns model."""
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_v2(model: ADMUNetV2, sd: Mapping[str, torch.Tensor]) -> ADMUNetV2:
+    """Loads a Lightning DWT/DCT-Var checkpoint's state dict: the EMA
+    weights under `model_ema.` if there are any, else `model.`;
+    `inner_model.*` into the UNet and `out_cov.*` into the variance head,
+    each strictly (the wrapper's other entries, such as its sigma tables,
+    are not weights). Returns model."""
+    prefix = ("model_ema." if any(k.startswith("model_ema.") for k in sd)
+              else "model.")
+    sd_model = strip_prefix(sd, prefix)
+    model.inner_model.load_state_dict(strip_prefix(sd_model, "inner_model."),
+                                      strict=True)
+    model.out_cov.load_state_dict(strip_prefix(sd_model, "out_cov."),
+                                  strict=True)
+    return model

@@ -6,7 +6,10 @@ dicts, and the bfloat16 inference pre-cast.
 nested dict of numpy arrays in the flax ADMUNet layout and returns a
 guided-diffusion state dict (NCHW/OIHW), which loads into
 `models.adm.ADMUNet`, or, for a {"unet", "out_cov"} tree, into
-`models.adm.ADMUNetV2`. This module needs no JAX: it reads numpy arrays.
+`models.adm.ADMUNetV2`. `lpips_from_jax_params` turns `kdip_tpu`'s LPIPS-VGG
+weights (the npz that its `--lpips-weights` reads) into
+`metrics.lpips_vgg`'s tensors. This module needs no JAX: it reads numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -105,6 +108,45 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         np.asarray(cov["kernel"], np.float32).transpose(3, 2, 0, 1)))
     sd["out_cov.bias"] = torch.from_numpy(np.asarray(cov["bias"], np.float32))
     return sd
+
+
+def lpips_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """`kdip_tpu`'s LPIPS-VGG params -> `metrics.lpips_vgg`'s float32
+    tensors: `conv{i}.kernel` HWIO -> `conv{i}.weight` OIHW, `conv{i}.bias`
+    and `lin{i}.kernel` ([C]) as they are. Takes the nested tree
+    ({"conv0": {"kernel", "bias"}, ...}) or the flat names of
+    `kdip_tpu.cli.convert_weights lpips` ({"conv0.kernel": ...})."""
+    flat = {".".join(path): w for path, w in _flatten(params)}
+    sd = {}
+    for name, w in flat.items():
+        mod, _, pname = name.rpartition(".")
+        if pname == "kernel" and mod.startswith("conv"):
+            sd[f"{mod}.weight"] = w.transpose(3, 2, 0, 1)
+        elif pname == "kernel" and mod.startswith("lin"):
+            sd[f"{mod}.weight"] = w
+        elif pname == "bias" and mod.startswith("conv"):
+            sd[name] = w
+        else:
+            raise KeyError(f"unmapped LPIPS param {name!r}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sorted(sd.items())}
+
+
+def randomize_(model: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
+    """Draws every parameter from a seeded numpy generator, in place,
+    zero-initialised layers included (out.2, the ResBlocks' out_layers.3,
+    proj_out), or eps is identically 0 and a run proves nothing: GroupNorm
+    weights 1 + std*N(0,1), everything else std*N(0,1). Returns the model."""
+    norm_weights = {f"{n}.weight" for n, m in model.named_modules()
+                    if isinstance(m, GroupNorm32)}
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            v = std * rng.standard_normal(p.shape, dtype=np.float32)
+            if name in norm_weights:
+                v += 1.0
+            p.copy_(torch.from_numpy(v))
+    return model
 
 
 def precast_inference(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:

@@ -65,6 +65,7 @@ import pkgutil, sys, importlib
 import kdip_tpu_torch
 for m in pkgutil.walk_packages(kdip_tpu_torch.__path__, "kdip_tpu_torch."):
     importlib.import_module(m.name)
+import bench_torch, chip_smoke
 bad = sorted(n for n in sys.modules
              if n in ("jax", "flax", "kdip_tpu")
              or n.split(".")[0] in ("jax", "jaxlib", "flax", "kdip_tpu"))
@@ -76,13 +77,45 @@ print("import-clean", len([n for n in sys.modules
 
 
 def test_port_imports_no_jax_and_no_kdip_tpu():
-    """Every kdip_tpu_torch module imports without loading jax, flax or any
-    kdip_tpu module (kdip_tpu_torch's own names start with "kdip_tpu", so
-    names are compared exactly, by their first component)."""
+    """Every kdip_tpu_torch module, bench_torch.py and chip_smoke.py import
+    without loading jax, flax or any kdip_tpu module (kdip_tpu_torch's own
+    names start with "kdip_tpu", so names are compared exactly, by their
+    first component)."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
     assert "import-clean" in r.stdout
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "kdip_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
+    yield os.path.join(REPO, "bench_torch.py")
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_sources_import_no_yaml_jax_or_kdip_tpu():
+    """No import statement anywhere in the port's sources, bench_torch.py
+    or chip_smoke.py, at any depth, names yaml (the card's machine may lack
+    PyYAML; config.load_yaml reads the subset), jax, flax or kdip_tpu.
+    (Here torch itself loads yaml, so sys.modules cannot tell.)"""
+    import ast
+    banned = {"yaml", "jax", "jaxlib", "flax", "kdip_tpu"}
+    found = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [(os.path.relpath(path, REPO), n) for n in names
+                      if n.split(".")[0] in banned]
+    assert not found, found
 
 
 # ---------------------------------------------------------------------------
