@@ -114,10 +114,32 @@ each printing one JSON line:
    memory and LPIPS's time per image;
 17. bench_torch: `python3 bench_torch.py` (the default workload) as a
    subprocess, its JSON line with bench.py's keys;
-18. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   3a, 4a, 7, 10, 12 and 16), its error, its time against its plain version's, its
-   bound and, for the Winograd kernels, cuDNN's direct conv, at the
-   slice's hottest shape; for the fused matvec, the six-launch chain it
+18. uncond_cli: the unconditional-sampling CLI
+   (`kdip_tpu_torch.cli.sample_uncond.main`, in-process) at full width
+   (configs/test_ffhq.json, a guided-diffusion .pt of seeded random
+   weights), -n 2, bf16, once per sampler: heun, euler, dpmpp_2m,
+   dpmpp_sde, lms and dpm_2 at --steps 10, ancestral --respacing 25, ddim
+   --respacing ddim25 with eta 0 and 0.5; each run's s per sample, NFEs
+   (counted by a forward hook, held to the sampler's count), ms/NFE, peak
+   memory, its two PNGs read back by `data.read_png` at 256x256x3 and
+   equal to the samples, no DWT or Winograd launch; heun again with the
+   same seed, bit-equal; dpmpp_sde's Brownian tree queries and host ms;
+19. samplers_rest: the samplers no CLI flag reaches, through the same
+   full-width discrete eps denoiser, n=2, 10 steps: euler_ancestral,
+   dpm_2_ancestral, dpmpp_2s_ancestral, dpmpp_2m_sde (midpoint, heun),
+   dpm_fast (10 calls) and dpm_adaptive (default tolerances, failing past
+   ADAPTIVE_NFE_BUDGET calls); then log_likelihood (4 RK4 steps, 16 fevals
+   with a vjp) and log_likelihood_adaptive (LL_ADAPTIVE_MAX_STEPS) at n=1;
+20. uncond_cpu_vs_card: a 64 px, 64-channel UNet through the CLI's
+   `draw_samples` in float32 (TF32 off) on the CPU and on the card, the
+   same weights, initial x and noise (dpmpp_2m 6 steps, ancestral over a
+   respacing of 5, dpmpp_sde 4 steps with one Brownian seed: the CPU run
+   queries a second tree of that seed on the card), within UNCOND_CPU_TOL
+   of the largest |x|;
+21. the `kernels` line: per kernel, its launches in its slices (phases 3,
+   3a, 4a, 7, 10, 12, 16 and 18-20), its error, its time against its
+   plain version's, its bound and, for the Winograd kernels, cuDNN's
+   direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
 
 Each slice's line has its ms/NFE, samples/s, cg_max_residual, CG
@@ -151,6 +173,20 @@ STEPS = 50          # SamplerConfig's default: Heun-50
 N_SAMPLES = 4
 CLI_DWT_IMAGES = 2              # cli_dwt_var's test images
 CLI_WINO_IMAGES = 1             # cli_convert_winograd's
+# phases 18-20, unconditional sampling: n, the Karras steps, the CLI runs
+UNCOND_N, UNCOND_STEPS = 2, 10
+UNCOND_RUNS = (("heun", ()), ("euler", ()), ("dpmpp_2m", ()),
+               ("dpmpp_sde", ()), ("lms", ()), ("dpm_2", ()),
+               ("ancestral", ("--respacing", "25")),
+               ("ddim", ("--respacing", "ddim25")),
+               ("ddim", ("--respacing", "ddim25", "--eta", "0.5")))
+# samplers_rest's dpm_adaptive at its default tolerances: a 64 px random
+# UNet takes 13 steps, 39 calls, on the CPU; the phase fails past this
+ADAPTIVE_NFE_BUDGET = 150
+LL_ADAPTIVE_MAX_STEPS = 4       # at most 1 + 6 * 4 = 25 fevals
+# CPU vs card, float32 with TF32 off: the same ops summed in other orders,
+# carried through a few steps from sigma 80
+UNCOND_CPU_TOL = 1e-3
 # tmpd's slice runs one sample: with random weights its CG runs the whole
 # 1000-iteration budget at most NFEs, so it took 209 of the script's 762 s
 # at n=4 (H100 80GB HBM3, 700 W), and the script aims at half its time
@@ -1611,6 +1647,319 @@ def phase_bench_torch(timeout_s: int = 600):
     return res
 
 
+def uncond_nfe(sampler: str, steps: int, respacing: str) -> int:
+    """The UNet calls of one uncond CLI run: Heun, DPM-2 and DPM++ SDE call
+    it twice a step but the last; the discrete chains once per kept
+    timestep; the others once a step."""
+    if sampler in ("ancestral", "ddim"):
+        return int(respacing.replace("ddim", ""))
+    return 2 * steps - 1 if sampler in ("heun", "dpm_2", "dpmpp_sde") \
+        else steps
+
+
+class UncondProbe:
+    """Records one in-process run of the uncond CLI, with the module
+    functions it calls wrapped for the run: the sampling's wall time
+    (`draw_samples`, synchronised), the UNet's calls (a forward hook on
+    the model `load_model` returns), the Brownian tree's calls and host
+    time (each call two W queries), peak memory and the kernels' launch
+    counts, reset just before `main`."""
+
+    def run(self, argv):
+        import contextlib
+        import io
+
+        import torch
+        from kdip_tpu_torch import brownian
+        from kdip_tpu_torch.cli import sample_uncond as U
+        from kdip_tpu_torch.ops import dwt as D
+        from kdip_tpu_torch.ops import winograd as Wg
+        load, draw = U.load_model, U.draw_samples
+        tree = brownian.BrownianTreeNoiseSampler.__call__
+        self.nfe, self.tree_calls, self.tree_s = 0, 0, 0.0
+
+        def count(*_):
+            self.nfe += 1
+
+        def loaded(*a, **kw):
+            model, tables = load(*a, **kw)
+            model.register_forward_hook(count)
+            return model, tables
+
+        def drawn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = draw(*a, **kw)
+            torch.cuda.synchronize()
+            self.sample_s = time.perf_counter() - t0
+            return out
+
+        def tree_call(sampler, sigma, sigma_next):
+            t0 = time.perf_counter()
+            out = tree(sampler, sigma, sigma_next)
+            self.tree_s += time.perf_counter() - t0
+            self.tree_calls += 1
+            return out
+        U.load_model, U.draw_samples = loaded, drawn
+        brownian.BrownianTreeNoiseSampler.__call__ = tree_call
+        buf = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            D.reset_launch_counts()
+            Wg.reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                out = U.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            U.load_model, U.draw_samples = load, draw
+            brownian.BrownianTreeNoiseSampler.__call__ = tree
+        self.stdout = buf.getvalue()
+        self.dwt_launches = dict(D.launch_counts)
+        self.winograd_launches = dict(Wg.launch_counts)
+        self.peak_mem_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+
+def run_uncond_cli(tmp):
+    """`kdip_tpu_torch.cli.sample_uncond.main` in-process at full width
+    (configs/test_ffhq.json, a .pt of seeded random weights), -n 2, bf16,
+    on its default device, the card, once per UNCOND_RUNS entry and heun
+    once more: each run's samples finite and [2, 3, 256, 256], its two
+    PNGs read back equal to them, its UNet calls the sampler's count, no
+    DWT or Winograd launch; the two heun runs bit-equal. Returns the runs'
+    summed launch counts (DWT, Winograd)."""
+    import torch
+    from kdip_tpu_torch import config, data, weights
+    cfg_path = config_path("test_ffhq.json")
+    model, _ = config.make_openai_model(config.load_config(cfg_path)["model"],
+                                        device="cpu")
+    ckpt = os.path.join(tmp, "uncond_model.pt")
+    torch.save(weights.randomize_(model, 30).state_dict(), ckpt)
+    del model
+    dwt, wino, heun = {}, {}, None
+    for i, (sampler, extra) in enumerate(UNCOND_RUNS + (("heun", ()),)):
+        logdir = os.path.join(tmp, "uncond", str(i))
+        argv = ["--checkpoint", ckpt, "--config", cfg_path, "-n",
+                str(UNCOND_N), "--sampler", sampler, "--steps",
+                str(UNCOND_STEPS), "--dtype", "bfloat16", "--logdir",
+                logdir, "--seed", "31", *extra]
+        probe = UncondProbe()
+        out = probe.run(argv)
+        respacing = extra[1] if extra else ""
+        nfe = uncond_nfe(sampler, UNCOND_STEPS, respacing)
+        pngs = sorted(os.listdir(logdir))
+        png_ok = pngs == [f"sample_{j}.png" for j in range(UNCOND_N)] and all(
+            np.array_equal(data.read_png(os.path.join(logdir, p)),
+                           data.to_uint8_image(out[j]))
+            and data.read_png(os.path.join(logdir, p)).shape
+            == (SIZE, SIZE, 3) for j, p in enumerate(pngs))
+        rec = {"phase": "uncond_cli", "sampler": sampler, "args": list(extra),
+               "n": UNCOND_N, "steps": UNCOND_STEPS, "nfe": probe.nfe,
+               "sample_s": probe.sample_s,
+               "s_per_sample": probe.sample_s / UNCOND_N,
+               "ms_per_nfe": 1e3 * probe.sample_s / max(probe.nfe, 1),
+               "peak_mem_gib": probe.peak_mem_gib,
+               "finite": bool(torch.isfinite(out).all()),
+               "max_abs_out": out.abs().max().item(), "pngs": pngs,
+               "pngs_read_back": png_ok,
+               "dwt_launches": probe.dwt_launches,
+               "winograd_launches": probe.winograd_launches}
+        if sampler == "dpmpp_sde":
+            rec["tree_queries"] = 2 * probe.tree_calls
+            rec["tree_host_ms_per_step"] = 1e3 * probe.tree_s / UNCOND_STEPS
+            rec["tree_host_ms_per_query"] = (1e3 * probe.tree_s
+                                             / max(2 * probe.tree_calls, 1))
+        if i == len(UNCOND_RUNS):
+            rec["bit_equal_to_first_heun"] = torch.equal(out, heun)
+        elif sampler == "heun":
+            heun = out
+        emit(rec)
+        if (tuple(out.shape) != (UNCOND_N, 3, SIZE, SIZE) or not rec["finite"]
+                or not png_ok or probe.nfe != nfe
+                or sum(probe.dwt_launches.values())
+                or sum(probe.winograd_launches.values())
+                or rec.get("bit_equal_to_first_heun") is False
+                or (sampler == "dpmpp_sde"
+                    and probe.tree_calls != 2 * (UNCOND_STEPS - 1))
+                or "wrote" not in probe.stdout):
+            raise AssertionError(f"uncond_cli {sampler} {extra}: {rec}, "
+                                 f"expected {nfe} UNet calls")
+        for total, counts in ((dwt, probe.dwt_launches),
+                              (wino, probe.winograd_launches)):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        del out
+        torch.cuda.empty_cache()
+    return dwt, wino
+
+
+def run_samplers_rest(dev):
+    """The samplers no CLI flag reaches, through the full-width discrete
+    eps denoiser (configs/test_ffhq.json, seeded random weights, bf16
+    torso), n=2 from sigma_max, 10 steps, noise from a seeded generator:
+    each one's UNet calls held to its count, its output finite; dpm_adaptive
+    stops with an error past ADAPTIVE_NFE_BUDGET calls. Then both
+    log-likelihoods at n=1 on a random image: fevals held to the UNet's
+    forward calls, values finite. Returns the phase's launch counts (DWT,
+    Winograd)."""
+    import torch
+    from kdip_tpu_torch import config, precond, samplers, schedules, weights
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import winograd as Wg
+    mc = config.load_config(config_path("test_ffhq.json"))["model"]
+    model, tables = config.make_openai_model(mc, device=dev)
+    weights.randomize_(model, 32)
+    weights.precast_inference(model).eval().requires_grad_(False)
+    den = precond.make_discrete_eps_denoiser(
+        lambda x, t: model(x, t)[:, :3], tables.log_sigmas)
+    calls = [0]
+
+    def denoise(x, sigma):
+        calls[0] += 1
+        if calls[0] > budget[0]:
+            raise AssertionError(f"more than {budget[0]} denoiser calls")
+        return den(x, sigma)
+    smin, smax = mc["sigma_min"], mc["sigma_max"]
+    sig = schedules.get_sigmas_karras(UNCOND_STEPS, smin, smax)
+    g = torch.Generator(device=dev).manual_seed(33)
+    x = torch.randn(UNCOND_N, 3, SIZE, SIZE, generator=g, device=dev) * smax
+    S, n = samplers, UNCOND_STEPS
+    runs = (
+        ("euler_ancestral", lambda: S.sample_euler_ancestral(
+            denoise, x, sig, generator=g), n),
+        ("dpm_2_ancestral", lambda: S.sample_dpm_2_ancestral(
+            denoise, x, sig, generator=g), 2 * n - 1),
+        ("dpmpp_2s_ancestral", lambda: S.sample_dpmpp_2s_ancestral(
+            denoise, x, sig, generator=g), 2 * n - 1),
+        ("dpmpp_2m_sde_midpoint", lambda: S.sample_dpmpp_2m_sde(
+            denoise, x, sig, generator=g), n),
+        ("dpmpp_2m_sde_heun", lambda: S.sample_dpmpp_2m_sde(
+            denoise, x, sig, solver_type="heun", generator=g), n),
+        ("dpm_fast", lambda: S.sample_dpm_fast(denoise, x, smin, smax, n), n),
+        ("dpm_adaptive", lambda: S.sample_dpm_adaptive(
+            denoise, x, smin, smax, return_info=True), None))
+    budget = [ADAPTIVE_NFE_BUDGET]
+    D.reset_launch_counts()
+    Wg.reset_launch_counts()
+    with torch.no_grad():
+        for name, run, want in runs:
+            calls[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec = {"phase": "samplers_rest", "sampler": name, "n": UNCOND_N,
+                   "steps": n, "nfe": calls[0], "wall_s": wall,
+                   "s_per_sample": wall / UNCOND_N,
+                   "ms_per_nfe": 1e3 * wall / calls[0],
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            if name == "dpm_adaptive":
+                out, info = out
+                rec.update(info, nfe_budget=ADAPTIVE_NFE_BUDGET)
+                want = info["nfe"]
+            rec["finite"] = bool(torch.isfinite(out).all())
+            rec["max_abs_out"] = out.abs().max().item()
+            emit(rec)
+            if calls[0] != want or not rec["finite"]:
+                raise AssertionError(f"samplers_rest {name}: {rec}, "
+                                     f"expected {want} calls")
+    x1 = torch.rand(1, 3, SIZE, SIZE, generator=g, device=dev) * 2 - 1
+    for name, run in (
+            ("log_likelihood", lambda: S.log_likelihood(
+                denoise, x1, smin, smax, steps=4, generator=g)),
+            ("log_likelihood_adaptive", lambda: S.log_likelihood_adaptive(
+                denoise, x1, smin, smax, max_steps=LL_ADAPTIVE_MAX_STEPS,
+                generator=g))):
+        calls[0] = 0
+        budget[0] = 1 + 6 * LL_ADAPTIVE_MAX_STEPS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ll, info = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {"phase": "samplers_rest", "sampler": name, "n": 1, **info,
+               "forward_calls": calls[0], "wall_s": wall,
+               "ms_per_feval": 1e3 * wall / info["fevals"],
+               "ll": ll.tolist(), "finite": bool(torch.isfinite(ll).all()),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        emit(rec)
+        if calls[0] != info["fevals"] or not rec["finite"] or (
+                name == "log_likelihood" and info["fevals"] != 16):
+            raise AssertionError(f"samplers_rest {name}: {rec}")
+    return dict(D.launch_counts), dict(Wg.launch_counts)
+
+
+def phase_uncond_cpu_vs_card(dev):
+    """A 64 px, 64-channel UNet (seeded random weights, std 0.05) through
+    the CLI's `draw_samples` in float32 on the CPU and on the card, the
+    same initial x and injected noise: dpmpp_2m 6 steps, ancestral over a
+    respacing of 5, and dpmpp_sde 4 steps whose noise comes from a
+    Brownian tree of one seed on the card, the CPU run querying a second
+    tree of that seed (W is a function of the seed and t). Each within
+    UNCOND_CPU_TOL of the largest |x| (TF32 is off). Returns the phase's
+    launch counts (DWT, Winograd)."""
+    import torch
+    from kdip_tpu_torch import config, weights
+    from kdip_tpu_torch.brownian import BrownianTreeNoiseSampler
+    from kdip_tpu_torch.cli import sample_uncond as U
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import winograd as Wg
+    px = 64
+    mc = {"input_size": [px, px], "sigma_min": 0.01, "sigma_max": 80,
+          "openai": {"num_channels": 64, "image_size": px,
+                     "channel_mult": "1,2,2", "attention_resolutions": "16",
+                     "dropout": 0.0}}
+    cpu = torch.device("cpu")
+    models = {}
+    for d in (cpu, dev):
+        model, tables = config.make_openai_model(mc, device=d)
+        models[d] = (weights.randomize_(model, 34, std=0.05).eval()
+                     .requires_grad_(False), tables)
+    shape = (UNCOND_N, 3, px, px)
+    gen = torch.Generator().manual_seed(35)
+    init = torch.randn(shape, generator=gen)
+    steps = [torch.randn(shape, generator=gen) for _ in range(5)]
+    recs = []
+    D.reset_launch_counts()
+    Wg.reset_launch_counts()
+    for sampler, n_steps, extra in (("dpmpp_2m", 6, ()),
+                                    ("ancestral", 6, ("--respacing", "5")),
+                                    ("dpmpp_sde", 4, ())):
+        args = U.build_argparser().parse_args(
+            ["--checkpoint", "-", "--config", "-", "-n", str(UNCOND_N),
+             "--sampler", sampler, "--steps", str(n_steps), "--dtype",
+             "float32", *extra])
+        outs, secs = {}, {}
+        for where, d in (("cpu", cpu), ("card", dev)):
+            kw = {"init_noise": init.to(d)}
+            if sampler == "ancestral":
+                kw["noise_fn"] = lambda i, d=d: steps[i].to(d)
+            elif sampler == "dpmpp_sde":
+                tree = BrownianTreeNoiseSampler(shape, 0.01, 80.0, 36,
+                                                device=dev)
+                kw["noise_sampler"] = lambda s, sn, d=d, tree=tree: tree(
+                    s, sn).to(d)
+            t0 = time.perf_counter()
+            outs[where] = U.draw_samples(args, *models[d], mc, d, **kw)
+            torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - t0
+        err = ((outs["card"].cpu() - outs["cpu"]).abs().max()
+               / outs["cpu"].abs().max()).item()
+        rec = {"sampler": sampler, "steps": n_steps, "args": list(extra),
+               "rel_err": err, "cpu_s": secs["cpu"], "card_s": secs["card"],
+               "finite": bool(torch.isfinite(outs["card"]).all())}
+        recs.append(rec)
+        if not (err <= UNCOND_CPU_TOL and rec["finite"]):
+            raise AssertionError(f"uncond_cpu_vs_card {rec}")
+    emit({"phase": "uncond_cpu_vs_card", "px": px, "tol": UNCOND_CPU_TOL,
+          "runs": recs})
+    return dict(D.launch_counts), dict(Wg.launch_counts)
+
+
 def winograd_launch_shapes(model, dev):
     """{(entry point, B, C, F, H, W): launches} of one UNet forward and its
     vjp at B = 1, as a guided NFE runs them under the per-sample loop,
@@ -1991,6 +2340,15 @@ def main() -> int:
             wino_by_slice[name] = probe.winograd_launches
             torch.cuda.empty_cache()
     timed("bench_torch", phase_bench_torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_slice["uncond_cli"], wino_by_slice["uncond_cli"] = timed(
+            "uncond_cli", run_uncond_cli, tmp)
+    torch.cuda.empty_cache()
+    by_slice["samplers_rest"], wino_by_slice["samplers_rest"] = timed(
+        "samplers_rest", run_samplers_rest, dev)
+    torch.cuda.empty_cache()
+    by_slice["uncond_cpu_vs_card"], wino_by_slice["uncond_cpu_vs_card"] = \
+        timed("uncond_cpu_vs_card", phase_uncond_cpu_vs_card, dev)
 
     rows = timed("kernel_rows", kernel_rows, dev, {
         k: sum(c[k] for c in by_slice.values()) for k in launches})

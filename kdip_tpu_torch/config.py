@@ -66,15 +66,12 @@ def make_openai_model(model_config: Dict, dtype=torch.float32,
                       winograd: bool = False, device="cuda"):
     """(ADMUNet, DiffusionTables) from a config's "model" block, its
     "openai" flags over OPENAI_MODEL_DEFAULTS (ref: k_diffusion/config.py:
-    52-65 + script_util.create_model_and_diffusion). The model is built in
+    52-65 + script_util.create_model_and_diffusion); the tables are
+    respaced by its timestep_respacing. The model is built in
     `dtype` on `device`; `winograd` takes effect in a bfloat16 or float16
     torso."""
     flags = dict(OPENAI_MODEL_DEFAULTS)
     flags.update(model_config.get("openai", {}))
-    if flags["timestep_respacing"]:
-        raise NotImplementedError(
-            "timestep_respacing is not ported yet: a later slice of the "
-            "PyTorch port (ROADMAP queue 1, item 1)")
     model = adm.create_unet(
         image_size=flags["image_size"], num_channels=flags["num_channels"],
         num_res_blocks=flags["num_res_blocks"],
@@ -89,7 +86,9 @@ def make_openai_model(model_config: Dict, dtype=torch.float32,
         use_new_attention_order=flags["use_new_attention_order"],
         dtype=dtype, device=device, winograd=winograd)
     tables = diffusion.make_diffusion(flags["diffusion_steps"],
-                                      flags["noise_schedule"], device=device)
+                                      flags["noise_schedule"],
+                                      flags["timestep_respacing"] or None,
+                                      device=device)
     return model, tables
 
 

@@ -1,8 +1,14 @@
 """Noise-level (sigma) schedules and ODE helpers (PyTorch port of
-`kdip_tpu/schedules.py`; ref: k_diffusion/sampling.py:13-58)."""
+`kdip_tpu/schedules.py`; ref: k_diffusion/sampling.py:13-58).
+
+The schedules are float32 and default to the CPU: samplers read them on
+the host to drive their loop."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -40,3 +46,48 @@ def to_d(x: torch.Tensor, sigma, denoised: torch.Tensor) -> torch.Tensor:
     if isinstance(sigma, torch.Tensor):
         sigma = append_dims(sigma, x.ndim)
     return (x - denoised) / sigma
+
+
+def get_sigmas_exponential(n: int, sigma_min: float, sigma_max: float,
+                           device="cpu") -> torch.Tensor:
+    """Exponential noise schedule, float32 (ref: k_diffusion/sampling.py:
+    26-29)."""
+    sigmas = torch.exp(torch.linspace(math.log(sigma_max),
+                                      math.log(sigma_min), n,
+                                      dtype=torch.float32, device=device))
+    return append_zero(sigmas)
+
+
+def get_sigmas_polyexponential(n: int, sigma_min: float, sigma_max: float,
+                               rho: float = 1.0, device="cpu"
+                               ) -> torch.Tensor:
+    """Polynomial-in-log-sigma schedule, float32 (ref:
+    k_diffusion/sampling.py:32-36)."""
+    ramp = torch.linspace(1, 0, n, dtype=torch.float32, device=device) ** rho
+    sigmas = torch.exp(ramp * (math.log(sigma_max) - math.log(sigma_min))
+                       + math.log(sigma_min))
+    return append_zero(sigmas)
+
+
+def get_sigmas_vp(n: int, beta_d: float = 19.9, beta_min: float = 0.1,
+                  eps_s: float = 1e-3, device="cpu") -> torch.Tensor:
+    """Continuous VP noise schedule, float32 (ref: k_diffusion/sampling.py:
+    39-43)."""
+    t = torch.linspace(1, eps_s, n, dtype=torch.float32, device=device)
+    sigmas = torch.sqrt(torch.exp(beta_d * t ** 2 / 2 + beta_min * t) - 1)
+    return append_zero(sigmas)
+
+
+def get_ancestral_step(sigma_from, sigma_to, eta: float = 1.0):
+    """(sigma_down, sigma_up) of an ancestral step (ref:
+    k_diffusion/sampling.py:51-58), as float32 host scalars (numpy; arrays
+    work elementwise): the samplers decide `sigma_down == 0` on the host."""
+    sigma_from = np.float32(sigma_from)
+    sigma_to = np.float32(sigma_to)
+    if not eta:
+        return sigma_to, np.float32(0)
+    sigma_up = np.minimum(sigma_to, np.float32(eta) * (
+        sigma_to ** 2 * (sigma_from ** 2 - sigma_to ** 2) / sigma_from ** 2
+    ) ** np.float32(0.5))
+    sigma_down = (sigma_to ** 2 - sigma_up ** 2) ** np.float32(0.5)
+    return sigma_down, sigma_up

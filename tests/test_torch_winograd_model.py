@@ -107,7 +107,8 @@ def test_winograd_flag_keeps_state_dict_and_f32_torso():
 def test_make_openai_model_from_config():
     """config.make_openai_model on configs/test_ffhq.json builds ffhq_unet's
     topology (names and shapes) with the flag set, and the 1000-step
-    linear tables; an unported flag raises."""
+    linear tables; timestep_respacing respaces them; an unported flag
+    raises."""
     cfg = P.config.load_config(REPO_CONFIG)
     model, tables = P.config.make_openai_model(
         cfg["model"], dtype=torch.bfloat16, winograd=True, device="cpu")
@@ -119,9 +120,10 @@ def test_make_openai_model_from_config():
     blocks = [m for m in model.modules()
               if isinstance(m, P.layers.ResBlock)]
     assert len(blocks) == 30 and all(b.winograd for b in blocks)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        P.config.make_openai_model(
-            {"openai": {"timestep_respacing": "100"}}, device="cpu")
+    _, spaced = P.config.make_openai_model(
+        {"openai": {"timestep_respacing": "100"}}, device="cpu")
+    assert spaced.num_timesteps == 100
+    assert spaced.timestep_map[:3].tolist() == [0, 10, 20]
     with pytest.raises(NotImplementedError, match="class_cond"):
         P.config.make_openai_model({"openai": {"class_cond": True}},
                                    device="cpu")
