@@ -66,7 +66,7 @@ each printing one JSON line:
    beside cuDNN's direct conv (one torch.profiler trace for all shapes)
    and the bound; then a line that sums them per level (H) and per NFE;
 10. slices on the other operators of bench.py's grid, each Heun-50 with
-   churn, n=4 samples against one measurement, operators from configs/
+   churn, n=2 samples against one measurement, operators from configs/
    (read by `config.load_yaml`, as every operator file here):
    gaussian deblur with Convert (no DWT or Winograd launch), the same
    with the CG warm start (`cg_warm_start`; its CG iterations and ms/NFE
@@ -136,8 +136,28 @@ each printing one JSON line:
    respacing of 5, dpmpp_sde 4 steps with one Brownian seed: the CPU run
    queries a second tree of that seed on the card), within UNCOND_CPU_TOL
    of the largest |x|;
+16a. two more CLI runs as phase 16's: cli_imagenet_winograd
+   (configs/test_imagenet.json at full width, 256 channels, --winograd,
+   bf16, a guided-diffusion .pt, 1 image; 89 plain + 79 fused Winograd
+   launches per NFE, derived from the model and held to
+   IMAGENET_WINO_PER_NFE) and cli_kdiff_v2_dwt (an image_v2 config
+   written by the phase, KDIFF_CLI_MODEL: the k-diffusion V2 UNet with its
+   learned DWT covariance, float32, a k-diffusion .pt, 1 image; the fused
+   matvec's launches the CG iterations plus one per solve, no standalone
+   DWT and no Winograd launch); each then --resume'd;
+16b. nfe_imagenet_winograd: phase 8's guided NFE on the ImageNet-256
+   torso, then phase 9's per-shape record of its every Winograd launch
+   (`winograd_shapes` / `winograd_levels` lines naming the config);
+16c. adm_rest_cpu_vs_card: a class-conditional ADM UNet without
+   scale-shift norm or resblock up/down, the attention-pool classifier
+   (logits and the classifier-guidance input gradient), the
+   super-resolution UNet and the k-diffusion V1 and V2 UNets, 64 px
+   float32, CPU against card within ADM_REST_TOL; then
+   no_scale_shift_winograd: a 64 px bf16 Winograd torso without
+   scale-shift norm, kernels against their plain versions (phase 8's
+   drift bound) and its launches exact;
 21. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   3a, 4a, 7, 10, 12, 16 and 18-20), its error, its time against its
+   3a, 4a, 7, 10, 12, 16-16c and 18-20), its error, its time against its
    plain version's, its bound and, for the Winograd kernels, cuDNN's
    direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
@@ -187,11 +207,40 @@ LL_ADAPTIVE_MAX_STEPS = 4       # at most 1 + 6 * 4 = 25 fevals
 # CPU vs card, float32 with TF32 off: the same ops summed in other orders,
 # carried through a few steps from sigma 80
 UNCOND_CPU_TOL = 1e-3
+# adm_rest_cpu_vs_card: one forward (and a gradient) a model, the same
+# bound as the uncond trajectories'
+ADM_REST_TOL = 1e-3
+# cli_imagenet_winograd and cli_kdiff_v2_dwt: test images each
+CLI_IMAGENET_IMAGES = 1
+CLI_KDIFF_IMAGES = 1
+# The ImageNet-256 torso's Winograd launches per guided NFE: 42 ResBlocks,
+# 5 of them down; the forward runs the plain kernel in the 5 down-blocks'
+# in_conv and the fused one in the other 79 convs, the vjp's dx the plain
+# kernel in all 84 (winograd_per_nfe derives it from the model; this holds
+# the derivation to the count of kdip_tpu/models/adm.py:69-142)
+IMAGENET_WINO_PER_NFE = {"winograd_conv3x3": 89,
+                         "winograd_conv3x3_fused": 79}
+FFHQ_WINO_PER_NFE = {"winograd_conv3x3": 65, "winograd_conv3x3_fused": 55}
+# cli_kdiff_v2_dwt's image_v2 config: no image_v2 config ships in the
+# repo, so these widths stand in for a published one, taken from the
+# repo's FFHQ ADM (channels 128, 128, 256, 256, 512, 512; two layers a
+# level; self-attention at 16 px; a mapping width of 4 x 128); the
+# learned DWT covariance (has_variance, "ortho_tf_type": "dwt"); the
+# k-diffusion defaults for the rest (sigma_data 1.0, augment_wrapper)
+KDIFF_CLI_MODEL = {
+    "type": "image_v2", "input_channels": 3, "input_size": [256, 256],
+    "sigma_min": 1e-2, "sigma_max": 80, "mapping_out": 512,
+    "depths": [2, 2, 2, 2, 2, 2], "channels": [128, 128, 256, 256, 512, 512],
+    "self_attn_depths": [False, False, False, False, True, False],
+    "has_variance": True, "ortho_tf_type": "dwt"}
 # tmpd's slice runs one sample: with random weights its CG runs the whole
 # 1000-iteration budget at most NFEs, so it took 209 of the script's 762 s
 # at n=4 (H100 80GB HBM3, 700 W), and the script aims at half its time
 # limit
 TMPD_N = 1
+# phase 10's other five slices run 2 samples: at 4 the phase took 298 of
+# the script's 1026 s (H100 80GB HBM3, 700 W), over the ~1000 s it keeps to
+BLUR_SR_N = 2
 BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
 TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
 STSL_NFE_SIGMA = 0.5            # phase 14's stsl NFE
@@ -809,7 +858,7 @@ def profiled_cases_ms(fns, name_part, reps: int):
     return out
 
 
-def phase_nfe_winograd(dev, gcfg, parts):
+def phase_nfe_winograd(dev, gcfg, parts, name: str = "nfe_winograd"):
     """One guided NFE at WINO_NFE_SIGMA (< Convert's threshold: a CG solve)
     on the Winograd slice's weights, three ways: the kernels, their plain
     versions (each conv's `conv_fn`; no launch may be counted), and the
@@ -832,7 +881,8 @@ def phase_nfe_winograd(dev, gcfg, parts):
     iterations of kernels and plain versions within 2. The max-relative
     differences between the variants are reported; hat_x0 = x0_mean +
     sigma^2 * vjp(mat) multiplies the vjp's noise where the Convert
-    variance of random weights is small."""
+    variance of random weights is small. Returns the kernels' launches of
+    one NFE (held exactly to winograd_per_nfe)."""
     import copy
 
     import torch
@@ -856,6 +906,7 @@ def phase_nfe_winograd(dev, gcfg, parts):
     g = torch.Generator(device=dev).manual_seed(8)
     x = x_true + sigma * torch.randn(x_true.shape, generator=g, device=dev)
     ct = torch.randn((1, 6, SIZE, SIZE), generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     x_in = x * float(np.float32(precond.eps_scalings(np.float32(sigma))[1]))
     t_b = precond.sigma_to_t(tables.log_sigmas, torch.tensor(
         sigma, device=dev)).floor().long().reshape(1)
@@ -916,7 +967,8 @@ def phase_nfe_winograd(dev, gcfg, parts):
     by_kind = device_ms_by_kind(kernels)
     t_k = float(np.median(walls["kernel"]))
     iters = {k: res[k][1]["cg_iters"] for k in variants}
-    rec = {"phase": "nfe_winograd", "sigma": sigma, "t": int(t_b),
+    rec = {"phase": name, "sigma": sigma, "t": int(t_b),
+           "model_channels": model.model_channels,
            "kernel_vs_max_rel": cmp, "norm_rel_vs_float32": drift,
            "drift_ratio_tol": WINO_DRIFT_RATIO,
            "cg_iters": iters,
@@ -931,7 +983,8 @@ def phase_nfe_winograd(dev, gcfg, parts):
            "device_idle_share": (1 - busy_ms / t_k) if kernels
            else "not measured",
            "top_kernels_ms": [[round(k[0], 4), k[1], k[2][:80]]
-                              for k in kernels[:10]]}
+                              for k in kernels[:10]],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit(rec)
     fails = [f"drift {q}: kernels {drift['kernel'][q]}, {k} {drift[k][q]}"
              for q in ref for k in ("plain", "direct")
@@ -939,10 +992,11 @@ def phase_nfe_winograd(dev, gcfg, parts):
     if abs(iters["kernel"] - iters["plain"]) > 2:
         fails.append(f"CG iterations {iters}")
     if fails:
-        raise AssertionError(f"nfe_winograd: {fails}")
+        raise AssertionError(f"{name}: {fails}")
+    return dict(per_nfe)
 
 
-def run_blur_sr_slices(dev, n: int = N_SAMPLES):
+def run_blur_sr_slices(dev, n: int = BLUR_SR_N):
     """Phase 10: the slices of bench.py's grid on the blur and SR operators
     (configs/*.yaml), each with its own check beyond run_slice's. Returns
     the DWT launch counts of the DWT-Var deblur slice, and per NFE phase of
@@ -1438,14 +1492,17 @@ def random_lpips_npz(path: str, seed: int = 0) -> None:
     np.savez(path, params=np.array(params, dtype=object))
 
 
-def cli_inputs(tmp: str, name: str, config_name: str, v2: bool, seed: int,
+def cli_inputs(tmp: str, name: str, config_name, v2: bool, seed: int,
                n_images: int):
     """A run's inputs in `tmp`: n_images seeded 256 px PNGs written by the
-    port's writer, a copy of configs/`config_name` whose dataset points at
-    them, and a checkpoint of seeded random weights (std 0.02) of the
-    configured model: a guided-diffusion .pt, or with v2 a Lightning .ckpt
-    of ADMUNetV2 under `model_ema.`. Returns (config path, checkpoint path,
-    the Winograd launches per guided NFE of that model)."""
+    port's writer, a config whose dataset points at them (a copy of
+    configs/`config_name`, or, for a dict, that "model" block merged as
+    `config.load_config` merges it), and a checkpoint of seeded random
+    weights (std 0.02) of the configured model: a guided-diffusion .pt, or
+    with v2 a Lightning .ckpt of ADMUNetV2 under `model_ema.`, or for an
+    image_v2 config a k-diffusion .pt. Returns (config path, checkpoint
+    path, the Winograd launches per guided NFE of that model, the merged
+    config's model type)."""
     import torch
     from kdip_tpu_torch import config, data, weights
     from kdip_tpu_torch.models import adm
@@ -1455,13 +1512,20 @@ def cli_inputs(tmp: str, name: str, config_name: str, v2: bool, seed: int,
     for i in range(n_images):
         data.write_png(os.path.join(root, "val", f"{i:05d}.png"),
                        rng.integers(0, 256, (SIZE, SIZE, 3), np.uint8))
-    cfg = config.load_config(config_path(config_name))
+    cfg = config.load_config(config_path(config_name)
+                             if isinstance(config_name, str)
+                             else {"model": config_name})
     cfg["dataset"] = dict(cfg["dataset"], location=os.path.join(root, "val"))
     cfg_path = os.path.join(root, "config.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    model, _ = config.make_openai_model(cfg["model"], device="cpu")
-    per_nfe = winograd_per_nfe(model)
+    if cfg["model"]["type"] == "image_v2":
+        torch.manual_seed(seed)  # the Fourier features' buffer
+        model = config.make_model(cfg, device="cpu")
+        per_nfe = {"winograd_conv3x3": 0, "winograd_conv3x3_fused": 0}
+    else:
+        model, _ = config.make_openai_model(cfg["model"], device="cpu")
+        per_nfe = winograd_per_nfe(model)
     if v2:
         model = adm.ADMUNetV2(model)
     sd = weights.randomize_(model, seed).state_dict()
@@ -1472,7 +1536,8 @@ def cli_inputs(tmp: str, name: str, config_name: str, v2: bool, seed: int,
     else:
         ckpt = os.path.join(root, "model.pt")
         torch.save(sd, ckpt)
-    return cfg_path, ckpt, per_nfe
+    del model, sd
+    return cfg_path, ckpt, per_nfe, cfg["model"]["type"]
 
 
 class CliProbe:
@@ -1538,25 +1603,30 @@ class CliProbe:
 
 
 def run_cli(name, tmp, lpips_npz, config_name, v2: bool, winograd: bool,
-            n_images: int, seed: int):
+            n_images: int, seed: int, dtype: str = "bfloat16",
+            want_per_nfe=None):
     """`kdip_tpu_torch.cli.sample_condition.main` in-process at full width
     on inpainting (configs/inpainting_config.yaml): Heun-50 with churn, -n
-    1, bf16 torso, --save-img, LPIPS; then the same logdir with --resume,
-    which must run no image and reproduce avg_metrics' psnr, ssim and
-    lpips bit for bit. Checks every image's metrics are finite and its
-    samples finite and in [-1, 1]; with v2 the fused matvec's launches are
-    the run's CG iterations plus one per solve and no standalone DWT
-    launches; with winograd, 65 plain + 55 fused launches per guided NFE.
-    The CLI runs on its default device, the card. Returns the record and
-    the first run's probe."""
+    1, a `dtype` torso, --save-img, LPIPS; then the same logdir with
+    --resume, which must run no image and reproduce avg_metrics' psnr,
+    ssim and lpips bit for bit. `config_name` is a configs/ file, or an
+    image_v2 "model" block (cli_inputs). Checks every image's metrics are
+    finite and its samples finite and in [-1, 1]; with v2 or an image_v2
+    config (both solve through the DWT covariance) the fused matvec's
+    launches are the run's CG iterations plus one per solve and no
+    standalone DWT launches; with winograd, the model's Winograd launches
+    per guided NFE, which must be `want_per_nfe`. The CLI runs on its
+    default device, the card. Returns the record and the first run's
+    probe."""
     from kdip_tpu_torch import config
-    cfg_path, ckpt, per_nfe = cli_inputs(tmp, name, config_name, v2, seed,
-                                         n_images)
+    cfg_path, ckpt, per_nfe, model_type = cli_inputs(
+        tmp, name, config_name, v2, seed, n_images)
+    dwt = v2 or model_type == "image_v2"
     logdir = os.path.join(tmp, name, "logs")
     argv = ["--checkpoint", ckpt, "--config", cfg_path,
             "--operator-config", config_path("inpainting_config.yaml"),
             "--logdir", logdir, "--steps", str(STEPS), "-n", "1",
-            "--dtype", "bfloat16", "--save-img", "--lpips-weights",
+            "--dtype", dtype, "--save-img", "--lpips-weights",
             lpips_npz, "--seed", str(seed)]
     argv += ["--v2"] if v2 else []
     argv += ["--winograd"] if winograd else []
@@ -1570,7 +1640,8 @@ def run_cli(name, tmp, lpips_npz, config_name, v2: bool, winograd: bool,
     iters = sum(c["cg_total_iters"] for c in probe.calls)
     nfe = n_images * (2 * STEPS - 1)
     rec = {"phase": name, "config": config_name, "v2": v2,
-           "winograd": winograd, "images": n_images, "steps": STEPS,
+           "winograd": winograd, "dtype": dtype, "images": n_images,
+           "steps": STEPS,
            "wall_clock_per_image": avg["wall_clock_per_image"],
            "ms_per_nfe": 1e3 * avg["wall_clock_per_image"] * n_images / nfe,
            "avg_metrics": {k: v for k, v in avg.items() if k != "lpips_note"},
@@ -1593,9 +1664,9 @@ def run_cli(name, tmp, lpips_npz, config_name, v2: bool, winograd: bool,
             raise AssertionError(f"{name}: sample out of [-1, 1]: {c}")
     if len(cg_line) != 1 or len(pngs) != 2 * n_images:
         raise AssertionError(f"{name}: CG line {cg_line}, {len(pngs)} PNGs")
-    solves = n_images * guided_nfes_below(1.0) if v2 else 0
+    solves = n_images * guided_nfes_below(1.0) if dwt else 0
     want_dwt = {"haar_dwt2": 0, "haar_idwt2": 0, "haar_ot_matvec":
-                iters + solves if v2 else 0}
+                iters + solves if dwt else 0}
     want_wino = ({k: v * nfe for k, v in per_nfe.items()} if winograd
                  else {k: 0 for k in probe.winograd_launches})
     rec["cg_solves"] = solves
@@ -1603,9 +1674,10 @@ def run_cli(name, tmp, lpips_npz, config_name, v2: bool, winograd: bool,
         raise AssertionError(f"{name}: launches {probe.dwt_launches} "
                              f"{probe.winograd_launches}, expected "
                              f"{want_dwt} {want_wino}")
-    if winograd and per_nfe != {"winograd_conv3x3": 65,
-                                "winograd_conv3x3_fused": 55}:
-        raise AssertionError(f"{name}: {per_nfe} Winograd launches per NFE")
+    if winograd and per_nfe != want_per_nfe:
+        raise AssertionError(f"{name}: {per_nfe} Winograd launches per "
+                             f"NFE, expected {want_per_nfe}")
+    rec["winograd_launches_per_nfe"] = per_nfe if winograd else None
 
     again = CliProbe()
     avg2 = again.run(argv + ["--resume"])
@@ -1624,6 +1696,207 @@ def run_cli(name, tmp, lpips_npz, config_name, v2: bool, winograd: bool,
         raise AssertionError(f"{name}: avg_metrics.yaml {saved}")
     emit(rec)
     return rec, probe
+
+
+def run_imagenet_nfe(dev, gcfg):
+    """nfe_imagenet_winograd: the ImageNet-256 Winograd torso
+    (configs/test_imagenet.json, 256 channels, built by bench_torch.build
+    with seeded weights) through phase_nfe_winograd's one guided NFE, then
+    every distinct Winograd launch of its NFE at its own shape beside
+    F.conv2d (phase_winograd_shapes). Returns the launch counts of the
+    NFE's runs (DWT, Winograd): no DWT kernel is on this path, and the
+    Winograd count is one NFE's."""
+    import torch
+
+    import bench_torch
+    from kdip_tpu_torch.ops import dwt as D
+    _, parts = bench_torch.build(
+        dev, gcfg, 3, load_op_config("inpainting_config.yaml"),
+        winograd=True, model_config="test_imagenet.json")
+    D.reset_launch_counts()
+    launches = phase_nfe_winograd(dev, gcfg, parts,
+                                  name="nfe_imagenet_winograd")
+    dwt_launches = dict(D.launch_counts)
+    if launches != IMAGENET_WINO_PER_NFE:
+        raise AssertionError(f"ImageNet NFE: {launches} Winograd launches")
+    if sum(dwt_launches.values()):
+        raise AssertionError(f"ImageNet NFE: DWT launches {dwt_launches}")
+    phase_winograd_shapes(dev, winograd_launch_shapes(parts[0], dev),
+                          config="test_imagenet.json")
+    del parts
+    torch.cuda.empty_cache()
+    return dwt_launches, launches
+
+
+def phase_adm_rest_cpu_vs_card(dev):
+    """The model families that no slice runs at full width, at 64 px in
+    float32 (TF32 off) on the CPU and on the card, the same seeded weights
+    (std 0.05) and inputs, each within ADM_REST_TOL of the largest |y|: a
+    class-conditional ADM UNet without scale-shift norm or resblock
+    up/down (conv resampling), the attention-pool classifier's logits and
+    the input gradient of log p(y | x) (classifier guidance), the
+    super-resolution UNet on a 16 px image, and the k-diffusion V1 and V2
+    UNets with their variance outputs. Returns the phase's launch counts
+    (DWT, Winograd): no kernel is on these paths."""
+    import copy
+
+    import torch
+    from kdip_tpu_torch import config, weights
+    from kdip_tpu_torch.models import adm, kdiff
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import winograd as Wg
+    px, cpu = 64, torch.device("cpu")
+    g = torch.Generator().manual_seed(40)
+    x = torch.randn(2, 3, px, px, generator=g)
+    t = torch.tensor([10.5, 700.25])
+    labels = torch.tensor([3, 998])
+
+    def class_cond():
+        m, _ = config.make_openai_model({"openai": {
+            "num_channels": 64, "image_size": px, "channel_mult": "1,2,2",
+            "attention_resolutions": "16", "class_cond": True,
+            "use_scale_shift_norm": False, "resblock_updown": False}},
+            device=cpu)
+        return m, lambda m, d: (m(x.to(d), t.to(d), y=labels.to(d)),)
+
+    def classifier():
+        m = adm.create_classifier(image_size=px, classifier_width=32,
+                                  classifier_depth=1,
+                                  classifier_attention_resolutions="8",
+                                  device=cpu)
+
+        def run(m, d):
+            z = x.to(d).requires_grad_(True)
+            logits = m(z, t.to(d))
+            lp = torch.log_softmax(logits, -1)[torch.arange(2), labels.to(d)]
+            return logits, torch.autograd.grad(lp.sum(), z)[0]
+        return m, run
+
+    def super_res():
+        m = adm.SuperResADMUNet(image_size=px, in_channels=6,
+                                model_channels=32, channel_mult=(1, 2, 2),
+                                attention_resolutions=(4,), num_heads=4,
+                                num_head_channels=32, device=cpu)
+        low = torch.rand(2, 3, 16, 16, generator=g) * 2 - 1
+        return m, lambda m, d: (m(x.to(d), t.to(d), low_res=low.to(d)),)
+
+    def kdiff_model(Model):
+        def make():
+            torch.manual_seed(41)
+            m = Model(c_in=3, feats_in=64, depths=(1, 1, 1),
+                      channels=(32, 64, 64),
+                      self_attn_depths=(False, True, False),
+                      mapping_cond_dim=9, has_variance=True, device=cpu)
+            sig = torch.tensor([0.05, 3.0])
+            cond = torch.zeros(2, 9)
+            return m, lambda m, d: m(x.to(d), sig.to(d),
+                                     mapping_cond=cond.to(d),
+                                     return_variance=True)
+        return make
+
+    cases = {"class_cond_adm": class_cond, "classifier_attention": classifier,
+             "super_res": super_res,
+             "kdiff_v1": kdiff_model(kdiff.ImageDenoiserModelV1),
+             "kdiff_v2": kdiff_model(kdiff.ImageDenoiserModelV2)}
+    D.reset_launch_counts()
+    Wg.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    recs = {}
+    for i, (name, make) in enumerate(cases.items()):
+        model, run = make()
+        weights.randomize_(model, 50 + i, std=0.05)
+        model.eval()
+        card = copy.deepcopy(model).to(dev)
+        t0 = time.perf_counter()
+        want = run(model, cpu)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = run(card, dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        errs = [((a.detach().cpu() - b.detach()).abs().max()
+                 / b.detach().abs().max()).item() for a, b in zip(got, want)]
+        recs[name] = {"rel_err": errs, "cpu_s": cpu_s, "card_s": card_s,
+                      "shapes": [list(a.shape) for a in got],
+                      "finite": all(bool(torch.isfinite(a).all())
+                                    for a in got)}
+        if not (max(errs) <= ADM_REST_TOL and recs[name]["finite"]):
+            raise AssertionError(f"adm_rest_cpu_vs_card {name}: "
+                                 f"{recs[name]}")
+        del model, card
+    launches = dict(D.launch_counts), dict(Wg.launch_counts)
+    emit({"phase": "adm_rest_cpu_vs_card", "px": px, "tol": ADM_REST_TOL,
+          "cases": recs, "dwt_launches": launches[0],
+          "winograd_launches": launches[1],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if sum(launches[0].values()) or sum(launches[1].values()):
+        raise AssertionError(f"adm_rest_cpu_vs_card launched {launches}")
+    return launches
+
+
+def phase_no_scale_shift_winograd(dev):
+    """The Winograd kernels under a ResBlock without scale-shift norm (its
+    out_conv's fused prologue takes the GroupNorm statistics of h + emb),
+    at reduced width: a 64 px, 64-channel bf16 torso with
+    use_scale_shift_norm=False and resblock_updown=False, forward and
+    x-vjp at B=2 through the kernels and through their plain versions
+    (each conv's `conv_fn`), against a float32 copy of the same weights.
+    Held as phase 8 holds the full torso: the kernels' drift from float32
+    (norm-relative) at most WINO_DRIFT_RATIO times the plain versions',
+    and the kernels' launches exactly the model's count (the plain run
+    launches none). Returns the launch counts (DWT, Winograd) of the
+    kernel run: no DWT kernel is on this path."""
+    import copy
+
+    import torch
+    from kdip_tpu_torch import config, weights
+    from kdip_tpu_torch.models.layers import Conv2d
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import winograd as Wg
+    model, _ = config.make_openai_model({"openai": {
+        "num_channels": 64, "image_size": 64, "channel_mult": "1,2,2",
+        "attention_resolutions": "16", "use_scale_shift_norm": False,
+        "resblock_updown": False}}, winograd=True, device=dev)
+    weights.randomize_(model, 61, std=0.05)
+    ref = copy.deepcopy(model).eval()
+    weights.precast_inference(model).eval()
+    g = torch.Generator(device=dev).manual_seed(62)
+    x = torch.randn(2, 3, 64, 64, generator=g, device=dev)
+    ct = torch.randn(2, 6, 64, 64, generator=g, device=dev)
+    t = torch.tensor([10.5, 700.25], device=dev)
+    convs = [m for m in model.modules() if isinstance(m, Conv2d)]
+
+    def run(m):
+        xg = x.clone().requires_grad_(True)
+        y = m(xg, t)
+        vjp, = torch.autograd.grad(y, xg, grad_outputs=ct)
+        return y.detach().float(), vjp.float()
+    want = run(ref)
+    outs, launches = {}, {}
+    D.reset_launch_counts()
+    for mode in ("kernel", "plain"):
+        for m in convs:
+            m.conv_fn = Wg.winograd_conv3x3_plain if mode == "plain" else None
+        Wg.reset_launch_counts()
+        outs[mode] = run(model)
+        torch.cuda.synchronize()
+        launches[mode] = dict(Wg.launch_counts)
+    dwt_launches = dict(D.launch_counts)
+    for m in convs:
+        m.conv_fn = None
+    drift = {k: [((a - b).norm() / b.norm()).item()
+                 for a, b in zip(outs[k], want)] for k in outs}
+    per_nfe = winograd_per_nfe(model)
+    rec = {"phase": "no_scale_shift_winograd", "px": 64,
+           "norm_rel_vs_float32": drift, "drift_ratio_tol": WINO_DRIFT_RATIO,
+           "winograd_launches": launches, "expected": per_nfe,
+           "dwt_launches": dwt_launches}
+    emit(rec)
+    if (launches["kernel"] != per_nfe or sum(launches["plain"].values())
+            or sum(dwt_launches.values()) or not all(k <= WINO_DRIFT_RATIO * p for k, p in
+                       zip(drift["kernel"], drift["plain"]))):
+        raise AssertionError(f"no_scale_shift_winograd: {rec}")
+    return dwt_launches, launches["kernel"]
 
 
 def phase_bench_torch(timeout_s: int = 600):
@@ -2002,14 +2275,15 @@ def winograd_launch_shapes(model, dev):
     return cases
 
 
-def phase_winograd_shapes(dev, cases):
+def phase_winograd_shapes(dev, cases, config: str = "test_ffhq.json"):
     """Each distinct Winograd launch of the NFE (`winograd_launch_shapes`)
     at its own shape, bf16: the kernel against its plain version (the
     WINO_* tolerance); then, in one torch.profiler trace for all shapes,
     WINO_SHAPE_REPS calls a shape of the kernel followed by F.conv2d on the
     same x and weight (cuDNN; all of its kernels, layout copies included):
     their device times beside the bound. One line per case, then one line that
-    sums launches x time per level (H) and over the NFE."""
+    sums launches x time per level (H) and over the NFE; each names the
+    model's `config`."""
     import torch
     import torch.nn.functional as F
     from kdip_tpu_torch.ops import winograd as Wg
@@ -2052,7 +2326,7 @@ def phase_winograd_shapes(dev, cases):
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / BF16_TENSOR_FLOP_PER_S
         bound = 1e3 * max(t_bytes, t_ops)
-        emit({"phase": "winograd_shapes", "entry": entry,
+        emit({"phase": "winograd_shapes", "config": config, "entry": entry,
               "shape_BCFHW": [B, C, Fo, H, W], "launches_per_nfe": n,
               "launch_config": Wg.launch_config(B, C, Fo, H, W)._asdict(),
               "device_ms": ms, "conv2d_device_ms": conv_ms, "bound_ms": bound,
@@ -2066,7 +2340,8 @@ def phase_winograd_shapes(dev, cases):
         lv["bound_ms"] += n * bound
     total = {k: sum(lv[k] for lv in levels.values()) for k in (
         "launches", "device_ms", "conv2d_device_ms", "bound_ms")}
-    emit({"phase": "winograd_levels", "cases": len(cases),
+    emit({"phase": "winograd_levels", "config": config,
+          "cases": len(cases),
           "per_nfe_by_H": levels, "per_nfe": total})
 
 
@@ -2329,16 +2604,29 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         lpips_npz = os.path.join(tmp, "lpips_vgg.npz")
         random_lpips_npz(lpips_npz)
-        for name, cfg_name, v2, wino, n_images, seed in (
+        for name, cfg_name, v2, wino, n_images, seed, kw in (
                 ("cli_dwt_var", "test_ffhq_dwt.json", True, False,
-                 CLI_DWT_IMAGES, 20),
+                 CLI_DWT_IMAGES, 20, {}),
                 ("cli_convert_winograd", "test_ffhq.json", False, True,
-                 CLI_WINO_IMAGES, 21)):
+                 CLI_WINO_IMAGES, 21, {"want_per_nfe": FFHQ_WINO_PER_NFE}),
+                ("cli_imagenet_winograd", "test_imagenet.json", False, True,
+                 CLI_IMAGENET_IMAGES, 22,
+                 {"want_per_nfe": IMAGENET_WINO_PER_NFE}),
+                ("cli_kdiff_v2_dwt", KDIFF_CLI_MODEL, False, False,
+                 CLI_KDIFF_IMAGES, 23, {"dtype": "float32"})):
             _, probe = timed(name, run_cli, name, tmp, lpips_npz, cfg_name,
-                             v2, wino, n_images, seed)
+                             v2, wino, n_images, seed, **kw)
             by_slice[name] = probe.dwt_launches
             wino_by_slice[name] = probe.winograd_launches
             torch.cuda.empty_cache()
+    name = "nfe_imagenet_winograd"
+    by_slice[name], wino_by_slice[name] = timed(name, run_imagenet_nfe, dev,
+                                                convert_cfg)
+    for name, phase in (("adm_rest_cpu_vs_card", phase_adm_rest_cpu_vs_card),
+                        ("no_scale_shift_winograd",
+                         phase_no_scale_shift_winograd)):
+        by_slice[name], wino_by_slice[name] = timed(name, phase, dev)
+    torch.cuda.empty_cache()
     timed("bench_torch", phase_bench_torch)
     with tempfile.TemporaryDirectory() as tmp:
         by_slice["uncond_cli"], wino_by_slice["uncond_cli"] = timed(

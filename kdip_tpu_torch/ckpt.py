@@ -1,12 +1,16 @@
 """Checkpoint loading (PyTorch port of `kdip_tpu/ckpt.py:289-307` and of the
 CLI's prefix handling, `kdip_tpu/cli/sample_condition.py:160-177`).
 
-A guided-diffusion `.pt` state dict loads into `models.adm.ADMUNet` as it
-is (`load_adm`); a Lightning DWT/DCT-Var checkpoint nests
-`inner_model.*` and `out_cov.*` under `model_ema.` or `model.`
-(`load_v2`). Both load strictly, so a misnamed key fails loudly. A
-directory checkpoint is `kdip_tpu`'s orbax format, which needs JAX: the
-port refuses it.
+The port's modules carry their reference's parameter names, so a
+guided-diffusion `.pt` state dict loads into `models.adm.ADMUNet`, a
+guided-diffusion classifier's into `models.adm.EncoderADMUNet`, and a
+k-diffusion state dict into `models.kdiff`'s ImageDenoiserModelV1/V2,
+FIR buffers included, as they are (`load_strict`; `kdip_tpu` strips no
+prefix from the last either, cli/sample_condition.py:161-164). A
+Lightning DWT/DCT-Var checkpoint nests `inner_model.*` and `out_cov.*`
+under `model_ema.` or `model.` (`load_v2`). All load strictly, so a
+misnamed key fails loudly. A directory checkpoint is `kdip_tpu`'s orbax
+format, which needs JAX: the port refuses it.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 
-from .models.adm import ADMUNet, ADMUNetV2
+from .models.adm import ADMUNetV2
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:
@@ -43,8 +47,10 @@ def strip_prefix(state_dict: Mapping[str, Any], prefix: str
             if k.startswith(prefix)}
 
 
-def load_adm(model: ADMUNet, sd: Mapping[str, torch.Tensor]) -> ADMUNet:
-    """Loads a guided-diffusion UNet state dict, strictly. Returns model."""
+def load_strict(model: torch.nn.Module,
+                sd: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+    """Loads a state dict named as the model's reference names it,
+    strictly. Returns model."""
     model.load_state_dict(sd, strict=True)
     return model
 

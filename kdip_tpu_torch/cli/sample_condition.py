@@ -12,7 +12,11 @@ guided sampling over a folder of test images, and writes per-image
 metrics to a resumable journal (`metrics.jsonl`), `args.yaml` and
 `avg_metrics.yaml` in the log dir. The flags, defaults and artefacts are
 `kdip_tpu`'s, with one more: `--device` (default `cuda`; the CPU only when
-asked for). Per-batch randomness comes from two torch.Generators seeded
+asked for). A config of `"type": "image_v2"` runs the k-diffusion
+native variance model (`models.kdiff`, float32 whatever --dtype says)
+with the EDM preconditioning, its ortho basis from the config without
+--v2, as `kdip_tpu`'s CLI does; "image_v1" and the "openai*" types run
+the ADM UNet. Per-batch randomness comes from two torch.Generators seeded
 from numpy's SeedSequence([seed, 2*start]) and ([seed, 2*start+1]), so a
 --resume run reproduces what the uninterrupted run would have drawn.
 """
@@ -27,8 +31,8 @@ import time
 import numpy as np
 import torch
 
-from .. import ckpt, config as kconfig, guidance, metrics, operators
-from .. import sampling_api, weights
+from .. import ckpt, config as kconfig, diffusion, guidance, metrics
+from .. import operators, sampling_api, weights
 from ..data import FolderOfImages, to_uint8_image, write_png
 from ..models import adm
 
@@ -148,17 +152,24 @@ def _recon_mse(path: str):
     return {k: np.asarray(data[k], np.float32) for k in keys}
 
 
-def _load_model(args, model_config, dev):
-    """The UNet (with the variance head under --v2) from the config and the
-    checkpoint, pre-cast under --dtype bfloat16; and the DDPM tables."""
-    model, tables = kconfig.make_openai_model(model_config,
+def _load_model(args, config, dev):
+    """The model from the config and the checkpoint, and the DDPM tables.
+    An image_v2 config gives its k-diffusion UNet in float32 (the tables
+    unused by its EDM path; `kdip_tpu` cli/sample_condition.py:139-147,
+    179-188); otherwise the ADM UNet (with the variance head under --v2),
+    pre-cast under --dtype bfloat16."""
+    sd = ckpt.load_torch_checkpoint(args.checkpoint)
+    if config["model"]["type"] == "image_v2":
+        model = ckpt.load_strict(kconfig.make_model(config, device=dev), sd)
+        tables = diffusion.make_diffusion(1000, "linear", device=dev)
+        return model.eval().requires_grad_(False), tables
+    model, tables = kconfig.make_openai_model(config["model"],
                                               winograd=args.winograd,
                                               device=dev)
-    sd = ckpt.load_torch_checkpoint(args.checkpoint)
     if args.v2:
         model = ckpt.load_v2(adm.ADMUNetV2(model), sd)
     else:
-        model = ckpt.load_adm(model, sd)
+        model = ckpt.load_strict(model, sd)
     if args.dtype == "bfloat16":
         # one cast of the torso; the GroupNorm parameters stay float32
         weights.precast_inference(model)
@@ -172,10 +183,7 @@ def main(argv=None):
     config = kconfig.load_config(args.config)
     model_config = config["model"]
     dataset_config = config["dataset"]
-    if model_config["type"] == "image_v2":
-        raise SystemExit(
-            "the k-diffusion native models (\"type\": \"image_v2\") are not "
-            "ported yet: ROADMAP queue 1, entry 6 (models/kdiff.py)")
+    native_v2 = model_config["type"] == "image_v2"
     if args.dp:
         raise SystemExit("--dp (data-parallel eval over several cards) is "
                          "not ported yet: ROADMAP queue 1, entry 9")
@@ -186,11 +194,12 @@ def main(argv=None):
     size = model_config["input_size"]
     if len(size) != 2 or size[0] != size[1]:
         raise SystemExit(f"input_size {size}: square images only")
-    ortho_tf_type = model_config.get("ortho_tf_type") if args.v2 else None
+    ortho_tf_type = (model_config.get("ortho_tf_type")
+                     if args.v2 or native_v2 else None)
     if args.spatial_var:
         ortho_tf_type = None
 
-    model, tables = _load_model(args, model_config, dev)
+    model, tables = _load_model(args, config, dev)
     recon_mse = None
     if args.xstart_cov_type == "analytic":
         recon_mse = _recon_mse(model_config.get("recon_mse"))
@@ -203,7 +212,7 @@ def main(argv=None):
 
     mle_thres = args.mle_sigma_thres
     if mle_thres is None:
-        mle_thres = 1.0 if args.v2 else 0.2
+        mle_thres = 1.0 if args.v2 or native_v2 else 0.2
     gcfg = guidance.GuidanceConfig(
         guidance=args.guidance, x0_cov_type=args.xstart_cov_type,
         mle_sigma_thres=mle_thres, zeta=args.zeta, lambda_=args.lam,
@@ -216,10 +225,24 @@ def main(argv=None):
         sampler=args.sampler or ("euler" if args.euler else "heun"),
         ode=args.ode)
     batch = args.batch_size
+    uncond_pair = None
+    if native_v2:
+        # 9 zeros of augmentation conditioning under augment_wrapper
+        # (`kdip_tpu` cli/sample_condition.py:190-198)
+        n_mapping = 9 if model_config.get("augment_wrapper") else 0
+
+        def model_apply(x_scaled, sigma_b):
+            cond = (x_scaled.new_zeros(x_scaled.shape[0], n_mapping)
+                    if n_mapping else None)
+            return model(x_scaled, sigma_b, mapping_cond=cond,
+                         return_variance=True)
+        uncond_pair = guidance.make_kdiff_v2_uncond(
+            model_apply, gcfg, sigma_data=model_config.get("sigma_data", 0.5))
     sampler = sampling_api.build_posterior_sampler(
         model, tables, operator, gcfg, scfg, recon_mse=recon_mse,
-        v2=args.v2, image_size=size[0],
-        channels=model_config.get("input_channels", 3), device=dev)
+        v2=args.v2 or native_v2, image_size=size[0],
+        channels=model_config.get("input_channels", 3), device=dev,
+        uncond_pair=uncond_pair)
 
     lpips_params = None
     if args.lpips_weights:

@@ -64,7 +64,7 @@ def load_model(args, model_config, dev):
     bfloat16 (the GroupNorm parameters stay float32); and the tables."""
     sd = ckpt.load_torch_checkpoint(args.checkpoint)
     model, tables = kconfig.make_openai_model(model_config, device=dev)
-    model = ckpt.load_adm(model, sd)
+    model = ckpt.load_strict(model, sd)
     if args.dtype == "bfloat16":
         weights.precast_inference(model)
     return model.eval().requires_grad_(False), tables

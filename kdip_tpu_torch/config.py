@@ -1,10 +1,13 @@
-"""JSON experiment configs and the OpenAI model factory (PyTorch port of
-`kdip_tpu/config.py:59-113`; ref: k_diffusion/config.py,
+"""JSON experiment configs and the model factories (PyTorch port of
+`kdip_tpu/config.py`; ref: k_diffusion/config.py,
 guided_diffusion/script_util.py).
 
-`make_openai_model` builds (ADMUNet, DiffusionTables) from a config's
-"model" block as the sampling CLI does, `winograd=` included. Only the
-OpenAI family and JSON files are ported.
+`load_config` merges a JSON config onto k-diffusion's defaults
+(`CONFIG_DEFAULTS`) as `kdip_tpu` does. `make_openai_model` builds
+(ADMUNet, DiffusionTables) from a config's "model" block as the sampling
+CLI does, `winograd=` included; `make_model` also builds the k-diffusion
+native UNets (`models.kdiff`); `make_denoiser_wrapper` names the loss a
+config trains with.
 
 `load_yaml` / `save_yaml` read and write the subset of YAML that the
 operator configs and the CLI's artefacts use, without PyYAML (which the
@@ -16,6 +19,7 @@ a ValueError that names the line.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
@@ -24,7 +28,43 @@ from typing import IO, Any, Dict, Union
 import torch
 
 from . import diffusion
-from .models import adm
+from .models import adm, kdiff
+
+
+def deep_merge(base: Dict, override: Dict) -> Dict:
+    """Recursive dict merge (replacement for jsonmerge.merge,
+    ref: k_diffusion/config.py:47; `kdip_tpu` config.py:23-32)."""
+    out = copy.deepcopy(base)
+    for k, v in override.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+CONFIG_DEFAULTS: Dict[str, Any] = {
+    # ref: k_diffusion/config.py:12-45
+    "model": {
+        "sigma_data": 1.0,
+        "patch_size": 1,
+        "dropout_rate": 0.0,
+        "augment_wrapper": True,
+        "augment_prob": 0.0,
+        "mapping_cond_dim": 0,
+        "unet_cond_dim": 0,
+        "cross_cond_dim": 0,
+        "cross_attn_depths": None,
+        "skip_stages": 0,
+        "has_variance": False,
+        "loss_config": "karras",
+    },
+    "dataset": {"type": "imagefolder"},
+    "optimizer": {"type": "adamw", "lr": 1e-4, "betas": [0.95, 0.999],
+                  "eps": 1e-6, "weight_decay": 1e-3},
+    "lr_sched": {"type": "constant"},
+    "ema_sched": {"type": "inverse", "power": 0.6667, "max_value": 0.9999},
+}
 
 
 # OpenAI model flag defaults (ref: diffpir_utils/utils_model.py:353-381)
@@ -51,15 +91,18 @@ OPENAI_MODEL_DEFAULTS: Dict[str, Any] = {
 
 
 def load_config(file: Union[str, IO, Dict]) -> Dict:
-    """A JSON experiment config from a path, an open file or a dict. Unlike
-    `kdip_tpu`'s, it merges no k-diffusion defaults
-    (ref: k_diffusion/config.py:12-45): no ported code reads them."""
+    """A JSON experiment config from a path, an open file or a dict,
+    merged onto CONFIG_DEFAULTS (ref: k_diffusion/config.py:11-47;
+    `kdip_tpu` config.py:72-83): so a "model" block without `sigma_data`
+    reads 1.0, `augment_wrapper` True, `mapping_cond_dim` 0."""
     if isinstance(file, dict):
-        return file
-    if isinstance(file, str):
+        config = file
+    elif isinstance(file, str):
         with open(file) as f:
-            return json.load(f)
-    return json.load(file)
+            config = json.load(f)
+    else:
+        config = json.load(file)
+    return deep_merge(CONFIG_DEFAULTS, config)
 
 
 def make_openai_model(model_config: Dict, dtype=torch.float32,
@@ -90,6 +133,56 @@ def make_openai_model(model_config: Dict, dtype=torch.float32,
                                       flags["timestep_respacing"] or None,
                                       device=device)
     return model, tables
+
+
+def make_model(config: Dict, dtype=torch.float32, device="cuda",
+               winograd: bool = False):
+    """Model factory (ref: k_diffusion/config.py:50-90; `kdip_tpu`
+    config.py:116-136) on a merged config: an "openai*" type returns
+    make_openai_model's (model, tables); "image_v2" and "image_v1" the
+    k-diffusion native UNet in float32 on `device` (dtype and winograd
+    apply to the OpenAI family only), its mapping conditioning 9 wider
+    under augment_wrapper."""
+    mc = config["model"]
+    ty = mc["type"]
+    if ty.startswith("openai"):
+        return make_openai_model(mc, dtype=dtype, winograd=winograd,
+                                 device=device)
+    if ty == "image_v2":
+        Model = kdiff.ImageDenoiserModelV2
+    elif ty == "image_v1":
+        Model = kdiff.ImageDenoiserModelV1
+    else:
+        raise ValueError("Invalid denoiser type")
+    mapping_cond_dim = mc["mapping_cond_dim"] + (
+        9 if mc["augment_wrapper"] else 0)
+    return Model(
+        c_in=mc["input_channels"], feats_in=mc["mapping_out"],
+        depths=tuple(mc["depths"]), channels=tuple(mc["channels"]),
+        self_attn_depths=tuple(mc["self_attn_depths"]),
+        mapping_cond_dim=mapping_cond_dim, unet_cond_dim=mc["unet_cond_dim"],
+        dropout_rate=mc["dropout_rate"], patch_size=mc["patch_size"],
+        skip_stages=mc["skip_stages"], has_variance=mc["has_variance"],
+        device=device)
+
+
+def make_denoiser_wrapper(config: Dict):
+    """Loss/denoiser wrapper factory (ref: k_diffusion/config.py:93-107;
+    `kdip_tpu` config.py:139-156): (loss_kind, sigma_data, ortho_tf_type),
+    loss_kind "edm", "variance" or "simple"."""
+    mc = config["model"]
+    sigma_data = mc.get("sigma_data", 1.0)
+    has_variance = mc.get("has_variance", False)
+    loss_config = mc.get("loss_config", "karras")
+    ortho_tf_type = mc.get("ortho_tf_type", None)
+    if loss_config == "karras":
+        kind = "variance" if has_variance else "edm"
+        return kind, sigma_data, ortho_tf_type
+    if loss_config == "simple":
+        if has_variance:
+            raise ValueError("the simple loss cannot train a variance head")
+        return "simple", sigma_data, ortho_tf_type
+    raise ValueError("Unknown loss config type")
 
 
 # ---------------------------------------------------------------------------

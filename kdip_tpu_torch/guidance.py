@@ -4,7 +4,8 @@ ref: condition/condition.py).
 Ported: every guidance mode of `kdip_tpu` (uncond, I, II, dps, pgdm,
 diffpir, stsl, autoI and dps+mle / pgdm+mle / stsl+mle) for the OpenAI ADM
 models, with the Convert, tmpd, analytic, pgdm, dps and diffpir covariances
-(V1) and the learned DWT/DCT/spatial covariance heads (V2); the likelihood
+(V1) and the learned DWT/DCT/spatial covariance heads (V2) of the ADM
+and the k-diffusion native models (`make_kdiff_v2_uncond`); the likelihood
 solves of the four linear operators: inpainting, deblurring (gaussian,
 motion), bicubic super-resolution and colorization, with the CG warm start
 (cg_warm_start); and `denoise.loglikelihood`, the measurement
@@ -203,6 +204,40 @@ def make_openai_v2_uncond(model_apply: Callable, tables: diff.DiffusionTables,
     def x0_var_fn(aux, sigma, mean_vjp=None, x_shape=None):
         if sigma < cfg.mle_sigma_thres:
             c_out2 = _f32(np.float32(sigma) ** 2)
+            return (torch.exp(aux["logvar"]).to(torch.float32) * c_out2,
+                    torch.exp(aux["logvar_ot"]).to(torch.float32) * c_out2)
+        return mle_var(sigma), mle_var(sigma)
+
+    return uncond_pred, x0_var_fn
+
+
+def make_kdiff_v2_uncond(model_apply: Callable, cfg: GuidanceConfig,
+                         sigma_data: float = 0.5):
+    """uncond_pred of the k-diffusion native variance model
+    (ImageDenoiserModelV2, `"type": "image_v2"`; `kdip_tpu`
+    guidance.py:225-260): the V2 learned-covariance treatment with EDM
+    c_skip/c_out/c_in preconditioning (`precond.edm_scalings` at
+    `sigma_data`, float32 host scalars).
+
+    model_apply(x_scaled, sigma_b) -> (out, logvar, logvar_ot), the model
+    with return_variance=True; sigma_b is [B]. x0_var_fn(aux, sigma, ...)
+    -> (x0_var, theta0_var): exp(logvar) c_out^2 and exp(logvar_ot)
+    c_out^2 below mle_sigma_thres, mle_var(sigma) above."""
+    sd = np.float32(sigma_data)
+
+    def scalings(sigma):
+        return [_f32(c) for c in precond.edm_scalings(np.float32(sigma), sd)]
+
+    def uncond_pred(x, sigma):
+        c_skip, c_out, c_in = scalings(sigma)
+        sigma_b = torch.full((x.shape[0],), _f32(sigma), device=x.device)
+        out, logvar, logvar_ot = model_apply(x * c_in, sigma_b)
+        x0_mean = out * c_out + x * c_skip
+        return x0_mean, {"logvar": logvar, "logvar_ot": logvar_ot}
+
+    def x0_var_fn(aux, sigma, mean_vjp=None, x_shape=None):
+        if sigma < cfg.mle_sigma_thres:
+            c_out2 = _f32(np.float32(scalings(sigma)[1]) ** 2)
             return (torch.exp(aux["logvar"]).to(torch.float32) * c_out2,
                     torch.exp(aux["logvar_ot"]).to(torch.float32) * c_out2)
         return mle_var(sigma), mle_var(sigma)

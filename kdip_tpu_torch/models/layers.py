@@ -120,6 +120,47 @@ class Conv2d(nn.Conv2d):
         return super().forward(x)
 
 
+class Upsample(nn.Module):
+    """2x nearest-neighbour upsample, then a 3x3 conv where `use_conv`
+    (ref: guided_diffusion/unet.py:81-110; `kdip_tpu` layers.py:227-242).
+    The conv is the direct one: `kdip_tpu` routes only the ResBlocks'
+    convs through Winograd."""
+
+    def __init__(self, channels: int, use_conv: bool, dtype,
+                 out_channels: Optional[int] = None):
+        super().__init__()
+        self.use_conv = use_conv
+        if use_conv:
+            self.conv = conv_nd(2, channels, out_channels or channels, 3,
+                                dtype)
+
+    def forward(self, x):
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return self.conv(x) if self.use_conv else x
+
+
+class Downsample(nn.Module):
+    """2x downsample: a stride-2 3x3 conv where `use_conv`, else a 2x2
+    average pool (ref: guided_diffusion/unet.py:113-140; `kdip_tpu`
+    layers.py:245-262). The module is named `op` either way, as in the
+    reference (the pool holds no weights)."""
+
+    def __init__(self, channels: int, use_conv: bool, dtype,
+                 out_channels: Optional[int] = None):
+        super().__init__()
+        out_ch = out_channels or channels
+        if use_conv:
+            self.op = conv_nd(2, channels, out_ch, 3, dtype, stride=2)
+        else:
+            if out_ch != channels:
+                raise ValueError("the average-pool downsample keeps the "
+                                 "channel count")
+            self.op = nn.AvgPool2d(2)
+
+    def forward(self, x):
+        return self.op(x)
+
+
 class TimestepEmbedSequential(nn.Sequential):
     """Sequential that passes the timestep embedding to its ResBlocks
     (ref: guided_diffusion/unet.py:66-78)."""
@@ -131,9 +172,11 @@ class TimestepEmbedSequential(nn.Sequential):
 
 
 class ResBlock(nn.Module):
-    """ADM residual block with scale-shift (FiLM) timestep-embedding
-    conditioning, which every ADM config of this repo uses
-    (ref: guided_diffusion/unet.py:143-257, use_scale_shift_norm=True).
+    """ADM residual block with timestep-embedding conditioning
+    (ref: guided_diffusion/unet.py:143-257): scale-shift (FiLM) norm by
+    default, which every ADM config of this repo uses; with
+    `use_scale_shift_norm=False` the embedding is added to h before
+    out_layers.
 
     `winograd` (`kdip_tpu` layers.py:263-381) takes effect in a bfloat16 or
     float16 torso, checked at forward time: its two 3x3 convs run the
@@ -142,22 +185,27 @@ class ResBlock(nn.Module):
     takes the affine from x before the nearest upsample, which commutes
     with the pointwise prologue); a down-block runs the plain kernel on the
     pooled, activated h. out_conv fuses always, the FiLM scale and shift
-    absorbed into the affine: gn(h)*(1+s) + t = h*(a*(1+s)) + (b*(1+s) + t).
-    A float32 torso keeps the direct path whatever the flag."""
+    absorbed into the affine: gn(h)*(1+s) + t = h*(a*(1+s)) + (b*(1+s) + t);
+    without scale-shift its affine is the statistics of h + emb
+    (`kdip_tpu` layers.py:357-363). A float32 torso keeps the direct path
+    whatever the flag."""
 
     def __init__(self, channels: int, emb_channels: int, dtype,
                  out_channels: Optional[int] = None,
                  up: bool = False, down: bool = False,
-                 winograd: bool = False):
+                 winograd: bool = False,
+                 use_scale_shift_norm: bool = True):
         super().__init__()
         out_ch = out_channels or channels
         self.up, self.down = up, down
         self.winograd = winograd
+        self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(),
             Conv2d(channels, out_ch, 3, dtype, winograd))
         self.emb_layers = nn.Sequential(
-            nn.SiLU(), nn.Linear(emb_channels, 2 * out_ch, dtype=dtype))
+            nn.SiLU(), nn.Linear(emb_channels, (
+                2 * out_ch if use_scale_shift_norm else out_ch), dtype=dtype))
         # index 2 is the reference's Dropout: identity at inference
         self.out_layers = nn.Sequential(
             GroupNorm32(out_ch), nn.SiLU(), nn.Identity(),
@@ -185,8 +233,11 @@ class ResBlock(nn.Module):
             h, x = self._resample(h), self._resample(x)
         h = conv(h)
         emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
-        scale, shift = emb_out.chunk(2, dim=1)
-        h = out_conv(out_act(out_norm(h) * (1 + scale) + shift))
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = out_conv(out_act(out_norm(h) * (1 + scale) + shift))
+        else:
+            h = out_conv(out_act(out_norm(h + emb_out)))
         return self.skip_connection(x) + h
 
     def _forward_fused(self, x, emb):
@@ -201,6 +252,10 @@ class ResBlock(nn.Module):
             x = self._resample(x)
             h = conv(x, prologue=aff)
         emb_out = self.emb_layers(emb).to(h.dtype)
+        if not self.use_scale_shift_norm:
+            h = h + emb_out[:, :, None, None]
+            return self.skip_connection(x) + out_conv(
+                h, prologue=out_norm.affine_terms(h))
         s, t = (v.to(torch.float32) for v in emb_out.chunk(2, dim=1))
         a, b = out_norm.affine_terms(h)
         h = out_conv(h, prologue=(a * (1 + s), b * (1 + s) + t))

@@ -45,11 +45,15 @@ def build_posterior_sampler(model_apply: Callable,
                             sampler_cfg: SamplerConfig = SamplerConfig(),
                             recon_mse: Optional[Dict[str, object]] = None,
                             v2: bool = False, image_size: int = 256,
-                            channels: int = 3, device="cuda"):
+                            channels: int = 3, device="cuda",
+                            uncond_pair=None):
     """Returns `sample(measurement, n=1, ...) -> hat_x0` ([n, C, H, W]).
 
     model_apply(x_scaled, t) is the raw ADMUNet (v1) or the ADMUNetV2 (v2)
-    forward; the model modules themselves qualify. recon_mse is the
+    forward; the model modules themselves qualify. `uncond_pair`, an
+    (uncond_pred, x0_var_fn) pair, replaces the OpenAI factories for
+    another model family (`guidance.make_kdiff_v2_uncond`; pass v2=True
+    for its variance pair). recon_mse is the
     analytic covariance's table ({"sigmas", "mse_list"}). The sampler runs
     on `device`; the model, tables, operator and measurement must live
     there.
@@ -65,7 +69,9 @@ def build_posterior_sampler(model_apply: Callable,
                                          sampler_cfg.sigma_min,
                                          sampler_cfg.sigma_max,
                                          sampler_cfg.rho)
-    if v2:
+    if uncond_pair is not None:
+        uncond, var_fn = uncond_pair
+    elif v2:
         uncond, var_fn = gd.make_openai_v2_uncond(model_apply, tables,
                                                   guidance_cfg)
     else:

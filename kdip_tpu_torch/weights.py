@@ -6,7 +6,11 @@ dicts, and the bfloat16 inference pre-cast.
 nested dict of numpy arrays in the flax ADMUNet layout and returns a
 guided-diffusion state dict (NCHW/OIHW), which loads into
 `models.adm.ADMUNet`, or, for a {"unet", "out_cov"} tree, into
-`models.adm.ADMUNetV2`. `lpips_from_jax_params` turns `kdip_tpu`'s LPIPS-VGG
+`models.adm.ADMUNetV2`. `classifier_from_jax_params` and
+`kdiff_from_jax_params` invert `kdip_tpu.ckpt.convert_classifier_state_dict`
+(ckpt.py:132-192) and `convert_kdiff_state_dict` (ckpt.py:194-278): a
+guided-diffusion classifier's and a k-diffusion UNet's state dicts.
+`lpips_from_jax_params` turns `kdip_tpu`'s LPIPS-VGG
 weights (the npz that its `--lpips-weights` reads) into
 `metrics.lpips_vgg`'s tensors. This module needs no JAX: it reads numpy
 arrays.
@@ -15,12 +19,13 @@ arrays.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from .models.kdiff import fir_kernel_2d
 from .models.layers import GroupNorm32
 
 # flax sub-path inside a block -> guided-diffusion sub-module
@@ -35,6 +40,8 @@ _BLOCK_LEAVES = {
     ("norm", "GroupNorm_0"): "norm",
     ("qkv",): "qkv",
     ("proj_out",): "proj_out",
+    ("op",): "op",
+    ("conv",): "conv",
 }
 # flax Dense layers that are 1x1 Conv1d in guided-diffusion
 _CONV1D = ("qkv", "proj_out")
@@ -65,10 +72,17 @@ def _leaf(pname: str, w: np.ndarray, conv1d: bool) -> tuple:
     return "weight", w.T  # Dense I O -> Linear O I
 
 
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
 def _unet_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd = {}
     for path, w in _flatten(params):
         top, pname = path[0], path[-1]
+        if top == "label_emb":
+            sd["label_emb.weight"] = _tensor(w)
+            continue
         if top in ("time_embed_1", "time_embed_2"):
             mod = {"time_embed_1": "time_embed.0",
                    "time_embed_2": "time_embed.2"}[top]
@@ -107,6 +121,105 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     sd["out_cov.weight"] = torch.from_numpy(np.ascontiguousarray(
         np.asarray(cov["kernel"], np.float32).transpose(3, 2, 0, 1)))
     sd["out_cov.bias"] = torch.from_numpy(np.asarray(cov["bias"], np.float32))
+    return sd
+
+
+# the classifier head's flax modules -> its `out` Sequential indices, by
+# pool (inverse of kdip_tpu/ckpt.py:139-146)
+_CLASSIFIER_OUT = {
+    "adaptive": {"out_norm": "0", "out_proj": "3"},
+    "attention": {"out_norm": "0", "out_pool": "2"},
+    "spatial": {"out_fc1": "0", "out_fc2": "2"},
+    "spatial_v2": {"out_fc1": "0", "out_norm": "1", "out_fc2": "3"},
+}
+
+
+def classifier_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax EncoderADMUNet params -> a guided-diffusion EncoderUNetModel
+    state dict (`models.adm.EncoderADMUNet`), float32; the pool is read
+    from the head's modules. AttentionPool2d's positional embedding goes
+    back to the reference's [C, T+1]."""
+    if "out_pool" in params:
+        pool = "attention"
+    elif "out_proj" in params:
+        pool = "adaptive"
+    else:
+        pool = "spatial_v2" if "out_norm" in params else "spatial"
+    head = _CLASSIFIER_OUT[pool]
+    sd = _unet_state_dict({k: v for k, v in params.items()
+                           if k not in head})
+    for mod, idx in head.items():
+        for path, w in _flatten(params[mod]):
+            if path[0] == "positional_embedding":
+                sd[f"out.{idx}.positional_embedding"] = _tensor(w.T)
+                continue
+            sub = f".{path[0]}" if mod == "out_pool" else ""
+            name, val = _leaf(path[-1], w, conv1d=mod == "out_pool")
+            sd[f"out.{idx}{sub}.{name}"] = _tensor(val)
+    return sd
+
+
+# a ResConvBlock's / SelfAttention2d's flax sub-path -> its k-diffusion
+# name (inverse of kdip_tpu/ckpt.py:209-233)
+_KDIFF_LEAVES = {
+    ("norm_1", "mapper"): "main.0.mapper", ("conv_1",): "main.2",
+    ("norm_2", "mapper"): "main.4.mapper", ("conv_2",): "main.6",
+    ("skip",): "skip", ("norm_in", "mapper"): "norm_in.mapper",
+    ("qkv_proj",): "qkv_proj", ("out_proj",): "out_proj",
+}
+_KDIFF_TOP = {"mapping_0": "mapping.0", "mapping_1": "mapping.2",
+              "mapping_cond": "mapping_cond", "proj_in": "proj_in",
+              "proj_out": "proj_out"}
+
+
+def kdiff_from_jax_params(params: Mapping, num_levels: int,
+                          skip_stages: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """flax ImageDenoiserModelV1/V2 params -> a k-diffusion state dict
+    (`models.kdiff`), float32, with the FIR `kernel` buffers of every
+    resampling block. num_levels is len(depths); skip_stages defaults to
+    the lowest level with a down block, right for a tree of flax's init,
+    which has no blocks below skip_stages (a strict load of its state dict
+    then needs those from elsewhere). A tree converted from a k-diffusion
+    state dict holds every level: pass skip_stages then."""
+    blocks = {k for k in params if k.startswith(("d_block_", "u_block_"))}
+    if skip_stages is None:
+        skip_stages = min(int(k.rsplit("_", 1)[1]) for k in blocks
+                          if k.startswith("d_block_"))
+    sd = {}
+    for path, w in _flatten(params):
+        top, pname = path[0], path[-1]
+        if top == "timestep_embed":
+            sd["timestep_embed.weight"] = _tensor(w)
+            continue
+        if top in _KDIFF_TOP:
+            name, val = _leaf(pname, w, conv1d=False)
+            sd[f"{_KDIFF_TOP[top]}.{name}"] = _tensor(val)
+            continue
+        if top not in blocks:
+            raise KeyError(f"unmapped flax module {top!r}")
+        side, level = top.rsplit("_", 1)
+        level = int(level)
+        block = params[top]
+        per_layer = 2 if "attn_0" in block else 1
+        first = 1 if side == "d_block" and level > skip_stages else 0
+        kind, k = path[1].split("_")
+        j = first + int(k) * per_layer + (kind == "attn")
+        idx = level if side == "d_block" else num_levels - 1 - level
+        leaf = _KDIFF_LEAVES[tuple(path[2:-1])]
+        name, val = _leaf(pname, w, conv1d=False)
+        sd[f"u_net.{side}s.{idx}.{j}.{leaf}.{name}"] = _tensor(val)
+    for top in sorted(blocks):
+        side, level = top.rsplit("_", 1)
+        level = int(level)
+        if level <= skip_stages:
+            continue
+        if side == "d_block":
+            sd[f"u_net.d_blocks.{level}.0.kernel"] = fir_kernel_2d()
+        else:
+            n = sum(k.startswith(("res_", "attn_")) for k in params[top])
+            sd[f"u_net.u_blocks.{num_levels - 1 - level}.{n}.kernel"] = \
+                fir_kernel_2d(scale=2.0)
     return sd
 
 

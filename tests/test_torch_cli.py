@@ -76,8 +76,7 @@ def env(tmp_path_factory):
     dataset = {"type": "imagefolder", "location": str(root / "val")}
     paths = {}
     for name, extra in (("config", {}), ("config_dwt",
-                                         {"ortho_tf_type": "dwt"}),
-                        ("config_kdiff", {"type": "image_v2"})):
+                                         {"ortho_tf_type": "dwt"})):
         paths[name] = str(root / f"{name}.json")
         with open(paths[name], "w") as f:
             json.dump({"model": dict(MODEL_CFG, **extra),
@@ -240,18 +239,16 @@ def test_sampling_flags_reach_the_sampler(env, tmp_path, flags):
     assert np.isfinite(avg["psnr"]) and np.isfinite(avg["ssim"])
 
 
-@pytest.mark.parametrize("case", ["dp", "image_v2", "orbax", "no_card",
+@pytest.mark.parametrize("case", ["dp", "orbax", "no_card",
                                   "batch_with_n"])
 def test_refusals(env, tmp_path, case, monkeypatch):
     """What the port does not run exits with a message that says why: --dp
-    and the k-diffusion native models name their ROADMAP entry, an orbax
-    directory is refused, --device cuda without a card never falls back to
-    the CPU, --batch-size > 1 needs -n 1."""
+    names its ROADMAP entry, an orbax directory is refused, --device cuda
+    without a card never falls back to the CPU, --batch-size > 1 needs -n
+    1. (The k-diffusion native models run: test_torch_kdiff_guidance.py.)"""
     logdir = tmp_path / "x"
     argv, match = {
         "dp": (_args(env, logdir, "--dp", "--device", "cpu"), "entry 9"),
-        "image_v2": (_args(env, logdir, "--device", "cpu",
-                           config="config_kdiff"), "entry 6"),
         "orbax": (_args(env, logdir, "--device", "cpu",
                         checkpoint="root"), "orbax"),
         "no_card": (_args(env, logdir), "no CUDA card"),
@@ -331,7 +328,7 @@ def test_checkpoint_loads_match_kdip_tpu(env, which):
     t = np.array([10.5, 700.25], np.float32)
     unet = tconfig.make_openai_model(MODEL_CFG, device="cpu")[0]
     if which == "pt":
-        model = tckpt.load_adm(unet, sd)
+        model = tckpt.load_strict(unet, sd)
         jm, params = jadm.ADMUNet(**UNET), jckpt.convert_adm_state_dict(jsd)
     else:
         model = tckpt.load_v2(tadm.ADMUNetV2(unet), sd)
@@ -356,7 +353,7 @@ def test_strict_loading_fails_loudly(env):
     sd["out.2.wieght"] = sd.pop("out.2.weight")
     unet = tconfig.make_openai_model(MODEL_CFG, device="cpu")[0]
     with pytest.raises(RuntimeError, match="out.2.w"):
-        tckpt.load_adm(unet, sd)
+        tckpt.load_strict(unet, sd)
     v2 = dict(tckpt.load_torch_checkpoint(env["ckpt_model"]))
     del v2["model.out_cov.bias"]
     with pytest.raises(RuntimeError, match="bias"):

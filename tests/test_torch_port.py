@@ -103,7 +103,10 @@ def test_port_sources_import_no_yaml_jax_or_kdip_tpu():
     import ast
     banned = {"yaml", "jax", "jaxlib", "flax", "kdip_tpu"}
     found = []
-    for path in _port_sources():
+    sources = list(_port_sources())
+    assert {os.path.join(REPO, "kdip_tpu_torch", *p) for p in (
+        ("models", "kdiff.py"), ("script_util.py",))} <= set(sources)
+    for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):

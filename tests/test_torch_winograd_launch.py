@@ -45,17 +45,27 @@ def launch_grid(B, C, F, H, W, cfg):
                        range(rank * cs, min(C, rank * cs + cs)))
 
 
-@pytest.fixture(scope="module")
-def ffhq_nfe():
+def nfe_shapes(config_file: str):
     """{(entry point, B, C, F, H, W): launches} of one UNet forward and vjp
-    of the FFHQ-256 Winograd torso (configs/test_ffhq.json) on the meta
-    device, recorded by the function that chip_smoke's per-shape phase
-    takes its shapes from."""
-    cfg = config.load_config("configs/test_ffhq.json")
+    of a config's Winograd torso on the meta device, recorded by the
+    function that chip_smoke's per-shape phases take their shapes from."""
+    cfg = config.load_config(config_file)
     model, _ = config.make_openai_model(cfg["model"], winograd=True,
                                         device="meta")
     model.to(torch.bfloat16)
     return chip_smoke.winograd_launch_shapes(model, torch.device("meta"))
+
+
+@pytest.fixture(scope="module")
+def ffhq_nfe():
+    """The FFHQ-256 torso's (configs/test_ffhq.json)."""
+    return nfe_shapes("configs/test_ffhq.json")
+
+
+@pytest.fixture(scope="module")
+def imagenet_nfe():
+    """The ImageNet-256 torso's (configs/test_imagenet.json)."""
+    return nfe_shapes("configs/test_imagenet.json")
 
 
 def check_grid(B, C, F, H, W):
@@ -94,6 +104,30 @@ def test_launch_covers_the_ffhq_nfe(ffhq_nfe):
     for _, *shape in ffhq_nfe:
         cfg, ctas = check_grid(*shape)
         assert ctas >= Wg.MIN_CTAS, (shape, cfg, ctas)
+
+
+def test_launch_covers_the_imagenet_nfe(imagenet_nfe):
+    """168 launches (89 plain + 79 fused per guided NFE) over the
+    ImageNet-256 torso's shapes, whose decoder concatenations reach C =
+    2048 at 8 px and 1536 at 16 and 32 px, where a CTA's slice outgrows U
+    and is rebuilt for every F block; each covered exactly once, in at
+    least MIN_CTAS CTAs."""
+    per_entry = {}
+    for (entry, *_), n in imagenet_nfe.items():
+        per_entry[entry] = per_entry.get(entry, 0) + n
+    assert per_entry == {"winograd_conv3x3": 89,
+                         "winograd_conv3x3_fused": 79}
+    shapes = {tuple(k[1:]) for k in imagenet_nfe}
+    assert {(1, 2048, 1024, 8, 8), (1, 1536, 1024, 16, 16),
+            (1, 1536, 512, 32, 32), (1, 768, 256, 128, 128),
+            (1, 512, 256, 256, 256), (1, 256, 256, 256, 256),
+            (1, 1024, 2048, 8, 8)} <= shapes
+    rounds = 0
+    for _, *shape in imagenet_nfe:
+        cfg, ctas = check_grid(*shape)
+        assert ctas >= Wg.MIN_CTAS, (shape, cfg, ctas)
+        rounds += cfg.cs > Wg.TILINGS[cfg.tiling][3]
+    assert rounds > 0
 
 
 def test_launch_covers_random_shapes():

@@ -107,8 +107,8 @@ def test_winograd_flag_keeps_state_dict_and_f32_torso():
 def test_make_openai_model_from_config():
     """config.make_openai_model on configs/test_ffhq.json builds ffhq_unet's
     topology (names and shapes) with the flag set, and the 1000-step
-    linear tables; timestep_respacing respaces them; an unported flag
-    raises."""
+    linear tables; timestep_respacing respaces them; class_cond builds a
+    label embedding of 1000 classes at the embedding width 4C."""
     cfg = P.config.load_config(REPO_CONFIG)
     model, tables = P.config.make_openai_model(
         cfg["model"], dtype=torch.bfloat16, winograd=True, device="cpu")
@@ -124,6 +124,6 @@ def test_make_openai_model_from_config():
         {"openai": {"timestep_respacing": "100"}}, device="cpu")
     assert spaced.num_timesteps == 100
     assert spaced.timestep_map[:3].tolist() == [0, 10, 20]
-    with pytest.raises(NotImplementedError, match="class_cond"):
-        P.config.make_openai_model({"openai": {"class_cond": True}},
-                                   device="cpu")
+    cond, _ = P.config.make_openai_model({"openai": {"class_cond": True}},
+                                         device="meta")
+    assert cond.label_emb.weight.shape == (1000, 4 * 128)
