@@ -34,11 +34,12 @@ each printing one JSON line:
    plain DWT, compared; the kernel run is traced with torch.profiler for
    the device's busy share and its top kernels;
 4a. slice_autoI_dwt_var: the same model with autoI guidance (the CLI's
-   --v2 --guidance autoI, 8 Hutchinson probes), Heun-50 with churn, n=4:
-   every guided call launches the standalone forward DWT 1 + 8 times and
-   the inverse 8 times, and below the threshold the fused no-mask matvec
-   once a CG iteration and once a solve (1 + 8 solves a call), counted
-   exactly against the calls recorded as they run; then nfe_autoI (one
+   --v2 --guidance autoI, 8 Hutchinson probes), Heun-50 with churn,
+   n=AUTOI_N: every guided call launches the standalone forward DWT 1 + 8
+   times and the inverse 8 times, and below the threshold the fused
+   no-mask matvec once a CG iteration and once a solve (1 + 8 solves a
+   call), counted exactly against the calls recorded as they run; then
+   nfe_autoI (one
    autoI NFE below the threshold, kernel DWT against plain DWT on the
    same probes, the kernel run traced) and nfe_loglikelihood
    (`denoise.loglikelihood`, 8 probes of 25 Lanczos steps, kernel
@@ -66,7 +67,8 @@ each printing one JSON line:
    beside cuDNN's direct conv (one torch.profiler trace for all shapes)
    and the bound; then a line that sums them per level (H) and per NFE;
 10. slices on the other operators of bench.py's grid, each Heun-50 with
-   churn, n=2 samples against one measurement, operators from configs/
+   churn, n=BLUR_SR_N samples against one measurement, operators from
+   configs/
    (read by `config.load_yaml`, as every operator file here):
    gaussian deblur with Convert (no DWT or Winograd launch), the same
    with the CG warm start (`cg_warm_start`; its CG iterations and ms/NFE
@@ -81,8 +83,9 @@ each printing one JSON line:
    iterations; and tmpd's variance at a few sigmas: its range and the
    share of it below 0 (the Jacobian's column sums need not be positive);
 12. slice_typeII_dwt_var: the DWT-Var model with Type-II guidance, Heun-50
-   with churn, n=4; its step W^-1(W mat * theta) is one fused no-mask
-   matvec at each guided call below the threshold, so the no-mask launches
+   with churn, n=TYPE_II_DCT_N; its step W^-1(W mat * theta) is one fused
+   no-mask matvec at each guided call below the threshold, so the no-mask
+   launches
    must equal those calls and the masked ones the CG iterations plus one
    per solve; slice_dct_var: the DCT-Var configuration
    (configs/test_ffhq_dct.json under --v2, Type-I, threshold 1.0), no DWT
@@ -156,8 +159,26 @@ each printing one JSON line:
    no_scale_shift_winograd: a 64 px bf16 Winograd torso without
    scale-shift norm, kernels against their plain versions (phase 8's
    drift bound) and its launches exact;
+16d. analytic_variance_imagenet: the analytic-variance CLI
+   (`kdip_tpu_torch.cli.analytic_variance.main`, in-process) on
+   configs/test_imagenet.json at full width, bf16, with
+   cli_imagenet_winograd's checkpoint: AV_SIGMAS sigmas over AV_BATCHES
+   batches of AV_B (seeded PNGs, two resized without PIL), every UNet
+   forward counted and timed, no DWT or Winograd launch; --resume again
+   runs no forward and gives the table bit for bit; then the guided CLI on
+   one image with the analytic covariance reading that table through the
+   config's recon_mse key (AV_CLI_STEPS Heun steps);
+16e. train_ffhq_dwt: the fine-tune CLI (`kdip_tpu_torch.cli.train_openai.
+   main`, in-process) on configs/train_ffhq_dwt.json at full width, float32
+   (TF32 off), batch TRAIN_B, from a seeded torso `.pt`, over seeded PNGs
+   (two resized): per_sample_map, batched and --accum 2 runs, then the
+   first resumed (the state restored exactly, then two more steps); every
+   call of the step launches the forward DWT kernel 2B times and the
+   inverse B times per-sample (2 and 1 batched) and no Winograd kernel;
+   its s/step (the median after the first) and peak memory; then one
+   loss and gradient with the kernel DWT against the plain version's;
 21. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   3a, 4a, 7, 10, 12, 16-16c and 18-20), its error, its time against its
+   3a, 4a, 7, 10, 12, 16-16e and 18-20), its error, its time against its
    plain version's, its bound and, for the Winograd kernels, cuDNN's
    direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
@@ -233,14 +254,40 @@ KDIFF_CLI_MODEL = {
     "depths": [2, 2, 2, 2, 2, 2], "channels": [128, 128, 256, 256, 512, 512],
     "self_attn_depths": [False, False, False, False, True, False],
     "has_variance": True, "ortho_tf_type": "dwt"}
+# train_ffhq_dwt: configs/train_ffhq_dwt.json through the fine-tune CLI at
+# batch TRAIN_B over TRAIN_IMAGES 256 px PNGs and TRAIN_RESIZED at 288 x
+# 320 (LANCZOS-resized without PIL); each run's steps; the DWT launches of
+# one call of the step: two forward (the output and the target) and one
+# inverse (the output's backward) a loss evaluation, B of them under
+# per_sample_map
+TRAIN_B, TRAIN_IMAGES, TRAIN_RESIZED = 4, 6, 2
+TRAIN_RUNS = (("per_sample_map", (), 3),
+              ("batched", ("--no-per-sample-map",), 3),
+              ("accum2", ("--accum", "2"), 4))
+TRAIN_RESUME_TO = 5            # the per_sample_map run, resumed at step 3
+# the kernel DWT's loss and gradient against the plain version's on the
+# card: the forward is the same arithmetic (the kernel is bit-equal to the
+# plain version within DWT_TOL); cuDNN's float32 weight gradients sum in
+# an order that may change from call to call
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+# analytic_variance_imagenet: configs/test_imagenet.json (bf16), AV_SIGMAS
+# Karras sigmas over AV_BATCHES batches of AV_B (the same kind of folder),
+# then the guided CLI on one image with the written table (--steps
+# AV_CLI_STEPS, to keep the phase short)
+AV_SIGMAS, AV_B, AV_BATCHES, AV_CLI_STEPS = 10, 4, 2, 10
+assert AV_B * AV_BATCHES == TRAIN_IMAGES + TRAIN_RESIZED
 # tmpd's slice runs one sample: with random weights its CG runs the whole
 # 1000-iteration budget at most NFEs, so it took 209 of the script's 762 s
 # at n=4 (H100 80GB HBM3, 700 W), and the script aims at half its time
 # limit
 TMPD_N = 1
-# phase 10's other five slices run 2 samples: at 4 the phase took 298 of
-# the script's 1026 s (H100 80GB HBM3, 700 W), over the ~1000 s it keeps to
-BLUR_SR_N = 2
+# Depth cut to keep the script inside its 1200 s limit with training's two
+# phases (H100 80GB HBM3, 700 W): phase 10's other five slices run 1
+# sample (at 4 the phase took 298 of 1026 s; at 2, 191 of 1132 s),
+# Type-II DWT-Var and DCT-Var 2 (82 s of 1132 s at 4), autoI 2 (62 s)
+BLUR_SR_N = 1
+TYPE_II_DCT_N = 2
+AUTOI_N = 2
 BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
 TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
 STSL_NFE_SIGMA = 0.5            # phase 14's stsl NFE
@@ -1075,7 +1122,7 @@ def check_no_dwt(rec) -> None:
                              f"{rec['dwt_launches']}")
 
 
-def run_type_ii_and_dct_slices(dev, n: int = N_SAMPLES):
+def run_type_ii_and_dct_slices(dev, n: int = TYPE_II_DCT_N):
     """slice_typeII_dwt_var and slice_dct_var: the DWT-Var model with Type-II
     guidance (its step W^-1(W mat * theta) one fused no-mask matvec at each
     guided call below the threshold, the CG's masked matvec one launch an
@@ -1206,7 +1253,7 @@ def phase_nfe_traced(name, dev, gcfg, v2: bool, parts,
     emit(rec)
 
 
-def run_autoi_slice(dev, n: int = N_SAMPLES):
+def run_autoi_slice(dev, n: int = AUTOI_N):
     """slice_autoI_dwt_var: the DWT-Var model (configs/test_ffhq_dwt.json
     under --v2 --guidance autoI: threshold 1.0, AUTOI_PROBES probes),
     Heun-50 with churn, n samples against one measurement. Every guided
@@ -1696,6 +1743,326 @@ def run_cli(name, tmp, lpips_npz, config_name, v2: bool, winograd: bool,
         raise AssertionError(f"{name}: avg_metrics.yaml {saved}")
     emit(rec)
     return rec, probe
+
+
+def training_folder(root: str, seed: int) -> str:
+    """TRAIN_IMAGES seeded 256 px PNGs and TRAIN_RESIZED at 288 x 320 (the
+    port's writer), in root/images; returns that folder."""
+    from kdip_tpu_torch import data
+    folder = os.path.join(root, "images")
+    os.makedirs(folder)
+    rng = np.random.default_rng(seed)
+    for i in range(TRAIN_IMAGES + TRAIN_RESIZED):
+        hw = (SIZE, SIZE) if i < TRAIN_IMAGES else (288, 320)
+        data.write_png(os.path.join(folder, f"{i:05d}.png"),
+                       rng.integers(0, 256, hw + (3,), np.uint8))
+    return folder
+
+
+def write_config(path: str, name: str, location: str, **model) -> str:
+    """configs/`name`, merged by `config.load_config`, its dataset at
+    `location` and `model`'s keys set in its "model" block, written to
+    `path`; returns path."""
+    from kdip_tpu_torch import config
+    cfg = config.load_config(config_path(name))
+    cfg["model"].update(model)
+    cfg["dataset"] = dict(cfg["dataset"], location=location)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+class TrainProbe:
+    """One in-process run of `cli.train_openai.main`: each call of the
+    train step timed (synchronised) with its DWT launches, the run's
+    launch counts (reset just before main), peak memory and stdout."""
+
+    def run(self, argv):
+        import contextlib
+        import io
+
+        import torch
+        from kdip_tpu_torch import train
+        from kdip_tpu_torch.cli import train_openai
+        from kdip_tpu_torch.ops import dwt as D
+        from kdip_tpu_torch.ops import winograd as Wg
+        make, self.steps = train.make_train_step, []
+
+        def made(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed(*sa, **skw):
+                before = dict(D.launch_counts)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(step(*sa, **skw))
+                self.steps.append({
+                    "s": time.perf_counter() - t0, "loss": loss,
+                    "dwt": {k: v - before[k]
+                            for k, v in D.launch_counts.items()}})
+                return loss
+            return timed
+        train.make_train_step = made
+        buf = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            D.reset_launch_counts()
+            Wg.reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                state = train_openai.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            train.make_train_step = make
+            self.stdout = buf.getvalue()
+        self.dwt_launches = dict(D.launch_counts)
+        self.winograd_launches = dict(Wg.launch_counts)
+        self.peak_mem_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        return state
+
+
+def train_loss_kernel_vs_plain(dev, model, log_sigmas):
+    """One openai_v2_loss value and its gradient with respect to every
+    parameter at [2, 3, 256, 256], with the kernel DWT and with the plain
+    version (PlainDWT, dwt2_plain under autograd), on the same inputs:
+    the loss within TRAIN_LOSS_RTOL, each gradient tensor within
+    TRAIN_GRAD_RTOL of its largest element."""
+    import torch
+    from kdip_tpu_torch import train, utils
+    from kdip_tpu_torch.ops.transforms import OrthoTransform
+    g = torch.Generator(device=dev).manual_seed(11)
+    x0 = torch.rand((2, 3, SIZE, SIZE), generator=g, device=dev) * 2 - 1
+    sigma = utils.rand_v_diffusion((2,), g, 0.5, 1e-2, 80.0)
+    noise = torch.randn(x0.shape, generator=g, device=dev)
+    params = [p for p in model.parameters()]
+
+    def loss_and_grads(ortho):
+        loss = train.openai_v2_loss(model, x0, noise, sigma, log_sigmas,
+                                    ortho).mean()
+        return loss.item(), torch.autograd.grad(loss, params)
+    lk, gk = loss_and_grads(OrthoTransform("dwt"))
+    lp, gp = loss_and_grads(PlainDWT())
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(gk, gp))
+    rec = {"loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "worst_grad_err_of_max": worst, "sigma": sigma.tolist()}
+    if not (rec["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and worst <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"train loss, kernel vs plain DWT: {rec}")
+    return rec
+
+
+def phase_train_ffhq_dwt(tmp, dev):
+    """train_ffhq_dwt: `cli.train_openai.main` in-process on
+    configs/train_ffhq_dwt.json at full width (the 93,563,910-parameter
+    torso from a seeded `.pt`, plus out_cov), float32, batch TRAIN_B, over
+    a folder of seeded PNGs (two of them resized): each TRAIN_RUNS run,
+    then the per_sample_map run resumed (first to its own step: the state
+    restored exactly; then on to TRAIN_RESUME_TO). Every call of the step
+    must launch the forward DWT kernel 2B and the inverse B times under
+    per_sample_map (2 and 1 batched), and no Winograd kernel. Then the
+    loss and gradient with the kernel against the plain DWT. Returns the
+    DWT and Winograd launches of all the runs."""
+    import torch
+    from kdip_tpu_torch import config, diffusion, weights
+    root = os.path.join(tmp, "train_ffhq_dwt")
+    os.makedirs(root)
+    cfg_path = write_config(os.path.join(root, "config.json"),
+                            "train_ffhq_dwt.json",
+                            training_folder(root, seed=30))
+    unet, _ = config.make_openai_model(
+        config.load_config(cfg_path)["model"], device="cpu")
+    n_params = sum(p.numel() for p in unet.parameters())
+    ckpt = os.path.join(root, "torso.pt")
+    torch.save(weights.randomize_(unet, 30).state_dict(), ckpt)
+    del unet
+    base = ["--config", cfg_path, "--checkpoint", ckpt, "--batch-size",
+            str(TRAIN_B), "--seed", "30"]
+    total_dwt = {"haar_dwt2": 0, "haar_idwt2": 0, "haar_ot_matvec": 0}
+    total_wino = {"winograd_conv3x3": 0, "winograd_conv3x3_fused": 0}
+    runs, states = {}, {}
+    # (name, argv, --max-steps, logdir, the steps the run takes)
+    plan = [(name, extra, steps, name, steps)
+            for name, extra, steps in TRAIN_RUNS]
+    first_steps = TRAIN_RUNS[0][2]
+    plan += [("restored", ("--resume",), first_steps, "per_sample_map", 0),
+             ("resumed", ("--resume",), TRAIN_RESUME_TO, "per_sample_map",
+              TRAIN_RESUME_TO - first_steps)]
+    for name, extra, steps, logname, n_steps in plan:
+        probe = TrainProbe()
+        states[name] = probe.run(base + list(extra) + [
+            "--max-steps", str(steps), "--save-every", str(steps),
+            "--logdir", os.path.join(root, logname)])
+        per_sample = "--no-per-sample-map" not in extra
+        want = ({"haar_dwt2": 2 * TRAIN_B, "haar_idwt2": TRAIN_B,
+                 "haar_ot_matvec": 0} if per_sample else
+                {"haar_dwt2": 2, "haar_idwt2": 1, "haar_ot_matvec": 0})
+        secs = [st["s"] for st in probe.steps]
+        rec = {"steps": len(secs), "step_s": secs,
+               "s_per_step": (float(np.median(secs[1:])) if len(secs) > 1
+                              else (secs[0] if secs else None)),
+               "first_step_s": secs[0] if secs else None,
+               "losses": [st["loss"] for st in probe.steps],
+               "dwt_launches_per_step": want,
+               "dwt_launches": probe.dwt_launches,
+               "winograd_launches": probe.winograd_launches,
+               "peak_mem_gib": probe.peak_mem_gib}
+        runs[name] = rec
+        bad = [st for st in probe.steps if st["dwt"] != want]
+        if (bad or len(secs) != n_steps
+                or probe.dwt_launches != {k: v * n_steps
+                                          for k, v in want.items()}
+                or any(probe.winograd_launches.values())
+                or not all(np.isfinite(rec["losses"]))):
+            raise AssertionError(f"train_ffhq_dwt {name}: {rec}, {bad}")
+        if name in ("restored", "resumed") and "resumed from" not in \
+                probe.stdout:
+            raise AssertionError(f"train_ffhq_dwt {name}: not resumed")
+        for k in total_dwt:
+            total_dwt[k] += probe.dwt_launches[k]
+        for k in total_wino:
+            total_wino[k] += probe.winograd_launches[k]
+        torch.cuda.empty_cache()
+    first, back = states["per_sample_map"], states["restored"]
+    restored = all(torch.equal(a, b) for a, b in zip(
+        list(first.model.parameters()) + list(first.ema.parameters()),
+        list(back.model.parameters()) + list(back.ema.parameters())))
+    if not restored or states["resumed"].step != TRAIN_RESUME_TO:
+        raise AssertionError("train_ffhq_dwt: --resume did not restore the "
+                             "state")
+    del states["per_sample_map"], states["restored"], first, back
+    # the config's tables: OPENAI_MODEL_DEFAULTS' 1000 linear steps
+    tables = diffusion.make_diffusion(1000, "linear", device=dev)
+    check = train_loss_kernel_vs_plain(dev, states["resumed"].model,
+                                       tables.log_sigmas)
+    del states
+    emit({"phase": "train_ffhq_dwt", "config": "train_ffhq_dwt.json",
+          "torso_params": n_params, "batch": TRAIN_B,
+          "images": [TRAIN_IMAGES, TRAIN_RESIZED], "runs": runs,
+          "restored_bit_equal": restored, "kernel_vs_plain": check,
+          "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                   "matmul": torch.backends.cuda.matmul.allow_tf32},
+          "nvidia_smi": nvidia_smi()})
+    return total_dwt, total_wino
+
+
+def phase_analytic_variance_imagenet(tmp, ckpt, lpips_npz):
+    """analytic_variance_imagenet: `cli.analytic_variance.main` in-process
+    on configs/test_imagenet.json at full width (bf16, the seeded `.pt` at
+    `ckpt`), AV_SIGMAS sigmas over AV_BATCHES batches of AV_B from a
+    folder of seeded PNGs (two resized), with --resume's journal: each
+    UNet forward counted and timed (synchronised), no DWT or Winograd
+    launch; then --resume again: no forward and the table bit for bit.
+    Then the guided CLI on one image with the analytic covariance reading
+    that table through the config's recon_mse key (AV_CLI_STEPS Heun
+    steps): finite metrics, samples in [-1, 1]. Returns the DWT and
+    Winograd launches of the three runs."""
+    import torch
+    from kdip_tpu_torch import data, train
+    from kdip_tpu_torch.cli import analytic_variance
+    from kdip_tpu_torch.models import adm
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import winograd as Wg
+    root = os.path.join(tmp, "analytic_variance_imagenet")
+    os.makedirs(root)
+    folder = training_folder(root, seed=31)
+    cfg_path = write_config(os.path.join(root, "config.json"),
+                            "test_imagenet.json", folder)
+    logdir = os.path.join(root, "logs")
+    argv = ["--config", cfg_path, "--checkpoint", ckpt, "--num-sigmas",
+            str(AV_SIGMAS), "--batch-size", str(AV_B),
+            # the folder holds AV_B * AV_BATCHES images
+            "--data-fraction", "1.0",
+            "--logdir", logdir, "--resume", "--seed", "31"]
+    forward, job = adm.ADMUNet.forward, train.analytic_variance
+
+    def run():
+        calls, job_s = [], []
+
+        def timed_forward(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = forward(self, *a, **kw)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+            return out
+
+        def timed_job(*a, **kw):
+            t0 = time.perf_counter()
+            out = job(*a, **kw)
+            job_s.append(time.perf_counter() - t0)
+            return out
+        adm.ADMUNet.forward = timed_forward
+        train.analytic_variance = timed_job
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            D.reset_launch_counts()
+            Wg.reset_launch_counts()
+            out = analytic_variance.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            adm.ADMUNet.forward, train.analytic_variance = forward, job
+        return out, calls, job_s[0], dict(D.launch_counts), dict(
+            Wg.launch_counts), torch.cuda.max_memory_allocated() / 2 ** 30
+    out, calls, job_s, dwt, wino, peak = run()
+    table = {k: v.tolist() for k, v in out.items()}
+    rec = {"phase": "analytic_variance_imagenet",
+           "config": "test_imagenet.json", "sigmas": AV_SIGMAS,
+           "batches": AV_BATCHES, "batch": AV_B,
+           "unet_forwards": len(calls),
+           "s_per_sigma": job_s / AV_SIGMAS,
+           "ms_per_forward": 1e3 * float(np.median(calls)),
+           "peak_mem_gib": peak, "table": table, "dwt_launches": dwt,
+           "winograd_launches": wino}
+    mse = np.asarray(table["mse_list"])
+    if (len(calls) != AV_SIGMAS * AV_BATCHES or len(mse) != AV_SIGMAS
+            or not np.all(np.isfinite(mse)) or not np.all(mse > 0)
+            or any(dwt.values()) or any(wino.values())):
+        raise AssertionError(f"analytic_variance_imagenet: {rec}")
+    again, calls2, _, dwt2, wino2, _ = run()
+    rec["resume"] = {"unet_forwards": len(calls2),
+                     "bit_equal": all(torch.equal(again[k], out[k])
+                                      for k in out)}
+    if calls2 or not rec["resume"]["bit_equal"]:
+        raise AssertionError(f"analytic_variance_imagenet: --resume "
+                             f"{rec['resume']}")
+    # the guided CLI on one 256 px image, the table through recon_mse
+    val = os.path.join(root, "val")
+    os.makedirs(val)
+    data.write_png(os.path.join(val, "00000.png"),
+                   data.read_png(os.path.join(folder, "00000.png")))
+    guided_cfg = write_config(
+        os.path.join(root, "guided.json"), "test_imagenet.json", val,
+        recon_mse=os.path.join(logdir, "recon_mse.npz"))
+    probe = CliProbe()
+    avg = probe.run(["--checkpoint", ckpt, "--config", guided_cfg,
+                     "--operator-config",
+                     config_path("inpainting_config.yaml"),
+                     "--logdir", os.path.join(root, "guided"),
+                     "--steps", str(AV_CLI_STEPS), "-n", "1",
+                     "--xstart-cov-type", "analytic", "--lpips-weights",
+                     lpips_npz, "--seed", "31"])
+    nfe = 2 * AV_CLI_STEPS - 1
+    rec["guided_analytic"] = {
+        "steps": AV_CLI_STEPS, "wall_clock_per_image":
+        avg["wall_clock_per_image"],
+        "ms_per_nfe": 1e3 * avg["wall_clock_per_image"] / nfe,
+        "psnr": avg["psnr"], "peak_mem_gib": probe.peak_mem_gib,
+        "sampler_calls": probe.calls, "dwt_launches": probe.dwt_launches,
+        "winograd_launches": probe.winograd_launches}
+    if (len(probe.calls) != 1 or not probe.calls[0]["finite"]
+            or probe.calls[0]["max_abs_out"] > 1 + 1e-5
+            or not all(np.isfinite(avg[k]) for k in ("psnr", "ssim",
+                                                      "lpips"))
+            or any(probe.dwt_launches.values())
+            or any(probe.winograd_launches.values())):
+        raise AssertionError(f"analytic_variance_imagenet guided: {rec}")
+    rec["nvidia_smi"] = nvidia_smi()
+    emit(rec)
+    return ({k: dwt[k] + dwt2[k] + probe.dwt_launches[k] for k in dwt},
+            {k: wino[k] + wino2[k] + probe.winograd_launches[k]
+             for k in wino})
 
 
 def run_imagenet_nfe(dev, gcfg):
@@ -2619,6 +2986,17 @@ def main() -> int:
             by_slice[name] = probe.dwt_launches
             wino_by_slice[name] = probe.winograd_launches
             torch.cuda.empty_cache()
+        # the ImageNet checkpoint of cli_imagenet_winograd (seeded random
+        # weights), rather than writing its 2.2 GB again
+        name = "analytic_variance_imagenet"
+        by_slice[name], wino_by_slice[name] = timed(
+            name, phase_analytic_variance_imagenet, tmp, os.path.join(
+                tmp, "cli_imagenet_winograd", "model.pt"), lpips_npz)
+        torch.cuda.empty_cache()
+        name = "train_ffhq_dwt"
+        by_slice[name], wino_by_slice[name] = timed(
+            name, phase_train_ffhq_dwt, tmp, dev)
+        torch.cuda.empty_cache()
     name = "nfe_imagenet_winograd"
     by_slice[name], wino_by_slice[name] = timed(name, run_imagenet_nfe, dev,
                                                 convert_cfg)

@@ -10,7 +10,7 @@ CUDA kernels live under `csrc/` and are built with nvcc at first use
 from . import (autoi, brownian, ckpt, config, data,  # noqa: F401
                ddpm_sampling, diffusion, guidance, metrics, operators,
                precond, samplers, sampling_api, schedules, script_util,
-               weights)
+               tfevents, train, utils, weights)
 from .models import adm, kdiff, layers  # noqa: F401
 from .ops import (dwt, fft, kernels, resize, transforms,  # noqa: F401
                   winograd)

@@ -35,6 +35,7 @@ from .. import ckpt, config as kconfig, diffusion, guidance, metrics
 from .. import operators, sampling_api, weights
 from ..data import FolderOfImages, to_uint8_image, write_png
 from ..models import adm
+from ..utils import seeded_generator
 
 LPIPS_NOTE = (
     "computed with converted weights; converter unvalidated against "
@@ -134,12 +135,8 @@ def _device(name: str) -> torch.device:
 def _generators(seed: int, start: int, dev: torch.device):
     """The measurement's and the sampler's generators of the batch that
     starts at image `start` (jax's fold_in(key, 2*start) and 2*start+1)."""
-    gens = []
-    for stream in (2 * start, 2 * start + 1):
-        state = np.random.SeedSequence([seed, stream]).generate_state(
-            1, np.uint64)[0]
-        gens.append(torch.Generator(device=dev).manual_seed(int(state)))
-    return gens
+    return [seeded_generator(dev, seed, stream)
+            for stream in (2 * start, 2 * start + 1)]
 
 
 def _recon_mse(path: str):

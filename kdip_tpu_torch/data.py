@@ -1,23 +1,33 @@
-"""The test-image folder and the port's PNG codec (PyTorch port of
-`kdip_tpu/data.py:27-56`; ref: k_diffusion/utils.py:274-297).
+"""The image folder, its batches and augmentation, and the port's PNG codec
+(PyTorch port of `kdip_tpu/data.py:27-87, 264-363`; ref:
+k_diffusion/utils.py:274-297, k_diffusion/augmentation.py:13-86).
 
 `FolderOfImages` is a sorted recursive glob that returns `(arr,)`, arr a
 float32 [C, H, W] array in [-1, 1]. The card's machine has no PIL, so an
 8-bit non-interlaced PNG of colour type 0, 2, 4 or 6 (grey, RGB, grey +
 alpha, RGBA) is decoded here: zlib, the five PNG row filters and numpy,
 the counterpart of the PNG path of `kdip_tpu`'s native loader
-(`kdip_tpu/native/loader.cc`). Every other file, and every file under
-`size=`, goes through PIL as `kdip_tpu` reads it; the choice is made from
-the extension and the PNG header. `write_png` writes the CLI's 8-bit RGB
-PNGs.
+(`kdip_tpu/native/loader.cc`). Under `size=` such a PNG is resized here
+too, by `resize_lanczos`, which reproduces Pillow's 8-bit LANCZOS
+(Resample.c) bit for bit as loader.cc:49-195 does. Every other file goes
+through PIL as `kdip_tpu` reads it; the choice is made from the extension
+and the PNG header. `batches` yields [B, C, H, W] batches, decoded by a
+thread pool when `num_workers > 0`. `KarrasAugmentationPipeline` and
+`augment_batch` are `kdip_tpu`'s, on [C, H, W]. `write_png` writes the
+CLIs' 8-bit RGB PNGs.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import struct
 import zlib
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from functools import reduce
 from pathlib import Path
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -179,10 +189,100 @@ def _rgb(img: np.ndarray) -> np.ndarray:
     return img[..., :3]
 
 
+# ---------------------------------------------------------------------------
+# Pillow's 8-bit LANCZOS resize (Pillow src/libImaging/Resample.c, as
+# kdip_tpu/native/loader.cc:49-195 reproduces it)
+# ---------------------------------------------------------------------------
+
+PRECISION_BITS = 32 - 8 - 2     # 22: the taps' fixed-point bits
+LANCZOS_SUPPORT = 3.0
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x *= math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    if -3.0 <= x < 3.0:
+        return _sinc(x) * _sinc(x / 3.0)
+    return 0.0
+
+
+@functools.lru_cache(maxsize=16)
+def lanczos_taps(in_size: int, out_size: int) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+    """Pillow's precompute_coeffs and normalize_coeffs_8bpc over the whole
+    axis: (xmin [out], taps [out, ksize] int64). Each output's taps are
+    normalised in double (summed in order, as C does), scaled by
+    2^PRECISION_BITS and rounded half away from zero, and are 0 past its
+    xmax. Scalar Python floats keep C's libm calls and roundings; the
+    arrays are read-only (cached)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = LANCZOS_SUPPORT * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    xmins = np.zeros(out_size, np.int64)
+    taps = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for w in k:
+            ww += w
+        if ww != 0.0:
+            k = [w / ww for w in k]
+        taps[xx, :xmax] = [int(-0.5 + w * (1 << PRECISION_BITS)) if w < 0
+                           else int(0.5 + w * (1 << PRECISION_BITS))
+                           for w in k]
+        xmins[xx] = xmin
+    xmins.setflags(write=False)
+    taps.setflags(write=False)
+    return xmins, taps
+
+
+def _lanczos_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One of Pillow's two passes along `axis` of a uint8 [H, W, C] image:
+    per output, the accumulator starts at 2^(PRECISION_BITS-1), adds each
+    tap times its pixel (a gather per tap, over every row and channel at
+    once), and clip8 takes the top bits."""
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    n_in = src.shape[0]
+    xmins, taps = lanczos_taps(n_in, out_size)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (PRECISION_BITS - 1),
+                  np.int64)
+    bcast = (-1,) + (1,) * (src.ndim - 1)
+    for k in range(taps.shape[1]):
+        # a tap past xmax is 0, so its clamped index adds nothing
+        idx = np.minimum(xmins + k, n_in - 1)
+        acc += src[idx] * taps[:, k].reshape(bcast)
+    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
+
+
+def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """A uint8 [H, W, C] image resized as Pillow's
+    `Image.resize((width, height), Image.LANCZOS)` resizes it, bit for bit:
+    the horizontal pass first, then the vertical, each only where that size
+    changes (at the same size, a copy)."""
+    if img.shape[1] != width:
+        img = _lanczos_pass(img, width, axis=1)
+    if img.shape[0] != height:
+        img = _lanczos_pass(img, height, axis=0)
+    return img.copy()
+
+
 class FolderOfImages:
     """Recursive image folder dataset, no classes
     (ref: k_diffusion/utils.py:274-297). Returns float32 [C, H, W] arrays
-    in [-1, 1]; `transform` is applied to that array."""
+    in [-1, 1]; `transform` is applied to that array. Under `size=` every
+    image is resized to size x size with LANCZOS, as `kdip_tpu` resizes it:
+    a PNG that `read_png` takes needs no PIL for that."""
 
     def __init__(self, root: str, transform: Optional[Callable] = None,
                  size: Optional[int] = None):
@@ -196,9 +296,17 @@ class FolderOfImages:
         return len(self.paths)
 
     def _uint8_rgb(self, path) -> np.ndarray:
-        if self.size is None and decodes_natively(path):
-            return _rgb(read_png(path))
-        from PIL import Image
+        if decodes_natively(path):
+            img = _rgb(read_png(path))
+            if self.size is not None:
+                img = resize_lanczos(img, self.size, self.size)
+            return img
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ImportError(
+                f"{path}: only an 8-bit non-interlaced PNG decodes without "
+                "PIL, and PIL is not installed") from None
         with Image.open(path) as img:
             img = img.convert("RGB")
             if self.size is not None:
@@ -211,3 +319,147 @@ class FolderOfImages:
         if self.transform is not None:
             arr = self.transform(arr)
         return (arr,)
+
+    def batches(self, batch_size: int, drop_last: bool = False,
+                shuffle: bool = False, seed: int = 0,
+                num_workers: int = 0, prefetch: int = 2
+                ) -> Iterator[np.ndarray]:
+        """Yield float32 [B, C, H, W] batches in `kdip_tpu`'s order (a
+        RandomState(seed) shuffle of the indices). With num_workers > 0 a
+        pool of that many threads decodes the items, `prefetch` batches
+        ahead of the one yielded: the same batches, in the same order, as
+        the synchronous path (`kdip_tpu`'s contract for its native loader,
+        data.py:58-73)."""
+        order = np.arange(len(self))
+        if shuffle:
+            np.random.RandomState(seed).shuffle(order)
+        groups = [order[i:i + batch_size]
+                  for i in range(0, len(order), batch_size)]
+        if drop_last and groups and len(groups[-1]) < batch_size:
+            groups.pop()
+        if num_workers <= 0:
+            for idxs in groups:
+                yield np.stack([self[j][0] for j in idxs])
+            return
+        pool = ThreadPoolExecutor(num_workers)
+        pending = deque()
+        try:
+            for idxs in groups:
+                pending.append([pool.submit(self.__getitem__, j)
+                                for j in idxs])
+                if len(pending) > prefetch:
+                    yield np.stack([f.result()[0]
+                                    for f in pending.popleft()])
+            while pending:
+                yield np.stack([f.result()[0] for f in pending.popleft()])
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+
+# ---------------------------------------------------------------------------
+# Karras augmentation (ref: k_diffusion/augmentation.py:13-86)
+# ---------------------------------------------------------------------------
+
+def _translate2d(tx, ty):
+    return np.array([[1, 0, tx], [0, 1, ty], [0, 0, 1]], np.float64)
+
+
+def _scale2d(sx, sy):
+    return np.array([[sx, 0, 0], [0, sy, 0], [0, 0, 1]], np.float64)
+
+
+def _rotate2d(theta):
+    return np.array([[math.cos(theta), math.sin(-theta), 0],
+                     [math.sin(theta), math.cos(theta), 0],
+                     [0, 0, 1]], np.float64)
+
+
+class KarrasAugmentationPipeline:
+    """EDM affine augmentation (ref: k_diffusion/augmentation.py:34-86;
+    `kdip_tpu` data.py:282-349) on [C, H, W] images.
+
+    __call__(image, rng) -> (aug, orig, cond9), images in [-1, 1]; an
+    image with no negative value is taken as [0, 1]. The RandomState draws,
+    their order and the 9-dim cond vector are `kdip_tpu`'s: [a0, a1, a2,
+    cos(a3)-1, sin(a3), a5 cos(a4), a5 sin(a4), a6, a7].
+    """
+
+    def __init__(self, a_prob=0.12, a_scale=2 ** 0.2, a_aniso=2 ** 0.2,
+                 a_trans=1 / 8):
+        self.a_prob = a_prob
+        self.a_scale = a_scale
+        self.a_aniso = a_aniso
+        self.a_trans = a_trans
+
+    def __call__(self, image: np.ndarray,
+                 rng: Optional[np.random.RandomState] = None):
+        if rng is None:
+            rng = np.random.RandomState()
+        if image.ndim == 2:
+            image = image[None]
+        h, w = image.shape[1:]
+        mats = [_translate2d(h / 2 - 0.5, w / 2 - 0.5)]
+
+        a0 = float(rng.randint(2))
+        mats.append(_scale2d(1 - 2 * a0, 1))
+        a1 = float(rng.randint(2)) * float(rng.rand() < self.a_prob)
+        mats.append(_scale2d(1, 1 - 2 * a1))
+        a2 = float(rng.randn()) * float(rng.rand() < self.a_prob)
+        mats.append(_scale2d(self.a_scale ** a2, self.a_scale ** a2))
+        a3 = float(rng.rand() * 2 * math.pi - math.pi) * float(
+            rng.rand() < self.a_prob)
+        mats.append(_rotate2d(-a3))
+        do4 = float(rng.rand() < self.a_prob)
+        a4 = float(rng.rand() * 2 * math.pi - math.pi) * do4
+        a5 = float(rng.randn()) * do4
+        mats.append(_rotate2d(a4))
+        mats.append(_scale2d(self.a_aniso ** a5, self.a_aniso ** -a5))
+        mats.append(_rotate2d(-a4))
+        do6 = float(rng.rand() < self.a_prob)
+        a6 = float(rng.randn()) * do6
+        a7 = float(rng.randn()) * do6
+        mats.append(_translate2d(self.a_trans * w * a6, self.a_trans * h * a7))
+
+        mats.append(_translate2d(-h / 2 + 0.5, -w / 2 + 0.5))
+        mat = reduce(np.matmul, mats)
+        cond = np.array([a0, a1, a2, math.cos(a3) - 1, math.sin(a3),
+                         a5 * math.cos(a4), a5 * math.sin(a4), a6, a7],
+                        np.float32)
+
+        image01 = (image + 1) / 2 if image.min() < 0 else image
+        aug = self._warp(image01, mat)
+        orig = image01 * 2 - 1
+        aug = aug * 2 - 1
+        return aug.astype(np.float32), orig.astype(np.float32), cond
+
+    @staticmethod
+    def _warp(image01: np.ndarray, mat: np.ndarray) -> np.ndarray:
+        """Affine warp of each channel plane, cubic with reflect boundary
+        (ref: augmentation.py:82-83 skimage.transform.warp order=3
+        mode='reflect'), through scipy.ndimage as `kdip_tpu` does: mat acts
+        on (x, y, 1) = (col, row, 1); the output samples mat^-1, swapped
+        to (row, col)."""
+        from scipy import ndimage
+        inv = np.linalg.inv(mat)
+        swap = np.array([[0, 1, 0], [1, 0, 0], [0, 0, 1]], np.float64)
+        m_rc = swap @ inv @ swap
+        out = np.empty_like(image01)
+        for c in range(image01.shape[0]):
+            out[c] = ndimage.affine_transform(
+                image01[c], m_rc[:2, :2], offset=m_rc[:2, 2], order=3,
+                mode="reflect", prefilter=True)
+        return out
+
+
+def augment_batch(pipeline: KarrasAugmentationPipeline, images: np.ndarray,
+                  seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The augmentation of each image of a [B, C, H, W] batch, image i
+    drawn from RandomState((seed * 100003 + i) % 2^31)."""
+    augs, origs, conds = [], [], []
+    for i, img in enumerate(images):
+        rng = np.random.RandomState((seed * 100003 + i) % (2 ** 31))
+        a, o, c = pipeline(img, rng)
+        augs.append(a)
+        origs.append(o)
+        conds.append(c)
+    return np.stack(augs), np.stack(origs), np.stack(conds)

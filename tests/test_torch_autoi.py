@@ -19,7 +19,10 @@ from kdip_tpu import operators as jo
 from kdip_tpu import sampling_api as jsa
 from kdip_tpu.models import adm as jadm
 from kdip_tpu.ops import transforms as jtf
-from test_torch_port import SMALL_UNET, nchw, nhwc, random_flax_params
+from test_torch_port import (SMALL_UNET, nchw, nhwc, one_torch_thread,  # noqa: F401
+                             random_flax_params)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 S = SMALL_UNET["image_size"]
 OPS = {

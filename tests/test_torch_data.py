@@ -130,7 +130,9 @@ def test_all_five_row_filters(tmp_path):
 def test_other_files_go_through_pil(tmp_path):
     """A JPEG, a palette PNG, a 16-bit PNG, an interlaced PNG and a JPEG
     named .png are PIL's, chosen from the extension and the header; under
-    size= every file is (the LANCZOS resize). Arrays equal kdip_tpu's."""
+    size= these are too (PIL's LANCZOS resize; an 8-bit PNG that read_png
+    takes is resized without PIL, tests/test_torch_train_data.py). Arrays
+    equal kdip_tpu's."""
     noisy, smooth = _images(seed=2)
     Image.fromarray(smooth[..., :3]).save(tmp_path / "a.jpg", quality=90)
     Image.fromarray(smooth[..., :3]).convert("P").save(tmp_path / "b.png")

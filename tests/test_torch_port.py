@@ -28,6 +28,19 @@ SMALL_UNET = dict(image_size=16, in_channels=3, model_channels=32,
                   channel_mult=(1, 2), num_heads=4, num_head_channels=16)
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Runs a module's small CPU ops on one torch thread: under the suite's
+    parallel workers, torch's per-op thread pools oversubscribe the cores
+    and spin, and tiny ops slow down a hundredfold. A module takes it with
+    `pytestmark = pytest.mark.usefixtures("one_torch_thread")` and the
+    import."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nchw(a) -> torch.Tensor:
     """kdip_tpu's NHWC array -> the port's NCHW float tensor."""
     return torch.from_numpy(np.ascontiguousarray(
@@ -105,7 +118,9 @@ def test_port_sources_import_no_yaml_jax_or_kdip_tpu():
     found = []
     sources = list(_port_sources())
     assert {os.path.join(REPO, "kdip_tpu_torch", *p) for p in (
-        ("models", "kdiff.py"), ("script_util.py",))} <= set(sources)
+        ("models", "kdiff.py"), ("script_util.py",), ("train.py",),
+        ("utils.py",), ("tfevents.py",), ("cli", "train_openai.py"),
+        ("cli", "analytic_variance.py"))} <= set(sources)
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
