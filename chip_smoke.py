@@ -177,8 +177,21 @@ each printing one JSON line:
    inverse B times per-sample (2 and 1 batched) and no Winograd kernel;
    its s/step (the median after the first) and peak memory; then one
    loss and gradient with the kernel DWT against the plain version's;
+16f. train_loop_ffhq_winograd: guided-diffusion's TrainLoop
+   (`kdip_tpu_torch.train_loop`) on configs/test_ffhq.json's ADM as it is
+   (learn_sigma, dropout 0.1), seeded random float32 masters and the bf16
+   Winograd torso, TF32 off: an ImageDataset of seeded PNGs with random
+   crops (BOX halvings and BICUBIC without PIL), 8 images a step in 2
+   microbatches, rescaled_mse, the loss-second-moment sampler, two EMAs,
+   GNS; first one microbatch's loss and gradients through the kernels,
+   their plain versions, the direct torso and float32, at dropout 0 and
+   0.1 with the same masks (phase 8's drift rule, launches exact forward
+   and backward apart, none fused under live dropout); then 4 steps, a
+   resume restoring the state bit for bit, and 2 more, every
+   microbatch's launches exact; the saved EMA loaded by the guided CLI's
+   loader; s/step, images/s, peak memory and the data fetch's share;
 21. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   3a, 4a, 7, 10, 12, 16-16e and 18-20), its error, its time against its
+   3a, 4a, 7, 10, 12, 16-16f and 18-20), its error, its time against its
    plain version's, its bound and, for the Winograd kernels, cuDNN's
    direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
@@ -276,6 +289,19 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
 # AV_CLI_STEPS, to keep the phase short)
 AV_SIGMAS, AV_B, AV_BATCHES, AV_CLI_STEPS = 10, 4, 2, 10
 assert AV_B * AV_BATCHES == TRAIN_IMAGES + TRAIN_RESIZED
+# train_loop_ffhq_winograd: guided-diffusion's TrainLoop on
+# configs/test_ffhq.json's ADM as it is (learn_sigma, dropout 0.1), float32
+# masters and a bf16 Winograd torso: LOOP_B images a step in microbatches
+# of LOOP_MB, LOOP_STEPS steps, then a fresh loop resumed from the logdir
+# takes LOOP_MORE more; random crops from seeded PNGs, (count, (H, W)):
+# the large ones always halved by BOX before BICUBIC (their smaller side
+# is at least twice the largest drawn scale, 320), the small ones BICUBIC
+# only
+LOOP_B, LOOP_MB, LOOP_STEPS, LOOP_MORE = 8, 4, 4, 2
+LOOP_PNGS = ((6, (660, 700)), (2, (280, 300)))
+LOOP_EMA = "0.9999,0.999"
+# the loss of a microbatch through a bf16 torso against float32 (relative)
+LOOP_LOSS_RTOL = 2e-2
 # tmpd's slice runs one sample: with random weights its CG runs the whole
 # 1000-iteration budget at most NFEs, so it took 209 of the script's 762 s
 # at n=4 (H100 80GB HBM3, 700 W), and the script aims at half its time
@@ -1947,6 +1973,341 @@ def phase_train_ffhq_dwt(tmp, dev):
     return total_dwt, total_wino
 
 
+def set_dropout_rate(model, p: float) -> None:
+    from kdip_tpu_torch.models.layers import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = p
+
+
+def loop_micro_grads(model, tables, micro, t, w, noise, dev, seed: int):
+    """One microbatch's rescaled_mse loss (weighted mean) and the gradient
+    of every parameter of `model`, float32, its dropout masks drawn from
+    seeded_generator(dev, seed) (so alike on every model of the
+    architecture); and the Winograd launches of the forward and of the
+    backward (its dx), counted apart."""
+    import torch
+    from kdip_tpu_torch import ddpm_sampling, utils
+    from kdip_tpu_torch.models.layers import set_dropout_generator
+    from kdip_tpu_torch.ops import winograd as Wg
+    set_dropout_generator(model, utils.seeded_generator(dev, seed))
+    Wg.reset_launch_counts()
+    terms = ddpm_sampling.training_losses(tables, model, micro, t,
+                                          loss_type="rescaled_mse",
+                                          noise=noise)
+    loss = (terms["loss"] * w).mean()
+    fwd = dict(Wg.launch_counts)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    bwd = {k: v - fwd[k] for k, v in Wg.launch_counts.items()}
+    return loss.item(), [g.float() for g in grads], fwd, bwd
+
+
+def winograd_per_microbatch(model, live_dropout: bool):
+    """The Winograd launches of a training microbatch, forward and
+    backward, from the model's blocks. Without live dropout the forward
+    is an NFE's (winograd_per_nfe: the plain kernel in each down-block's
+    in_conv, the fused one in every other 3x3 conv of a ResBlock); under
+    live dropout no conv fuses (kdip_tpu layers.py:311-313), so both of
+    each block's convs run the plain kernel. The backward runs the plain
+    kernel once a conv (dx, the fused conv's too). FFHQ-256 (30 blocks, 5
+    down): 5 + 55 forward at dropout 0, 60 + 0 under dropout; 60 + 0
+    backward."""
+    from kdip_tpu_torch.models.layers import ResBlock
+    blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+    n, down = len(blocks), sum(b.down for b in blocks)
+    fwd = ({"winograd_conv3x3": 2 * n, "winograd_conv3x3_fused": 0}
+           if live_dropout else
+           {"winograd_conv3x3": down, "winograd_conv3x3_fused": 2 * n - down})
+    return fwd, {"winograd_conv3x3": 2 * n, "winograd_conv3x3_fused": 0}
+
+
+def train_loop_compare(loop, dev, image_size: int):
+    """One microbatch's loss and every parameter's gradient through the
+    loop's bf16 torso three ways, the kernels, their plain versions (each
+    conv's `conv_fn`) and the direct cuDNN torso (winograd off), and
+    through the float32 masters, the reference; at dropout 0 (both entry
+    points and the fused backward) and at the config's rate (the plain
+    entry point only), with the same dropout masks on every side. Held:
+    the kernels' launches exact, forward and backward apart (none on the
+    other sides); the bf16 drift rule of the NFE phases on the gradients,
+    the kernels' norm-relative drift from float32 (all gradients as one
+    vector) and their worst drift relative to each tensor's largest
+    element both at most WINO_DRIFT_RATIO times the plain versions' and
+    the direct torso's; each bf16 loss within LOOP_LOSS_RTOL of float32."""
+    import torch
+    from kdip_tpu_torch.models.layers import Conv2d, Dropout
+    from kdip_tpu_torch.ops import winograd as Wg
+    comp, master = loop.compute, loop.model.train()
+    rate = next(m.p for m in comp.modules() if isinstance(m, Dropout))
+    convs = [m for m in comp.modules() if isinstance(m, Conv2d)]
+    g = torch.Generator(device=dev).manual_seed(41)
+    micro = torch.rand((LOOP_MB, 3, image_size, image_size), generator=g,
+                       device=dev) * 2 - 1
+    noise = torch.randn(micro.shape, generator=g, device=dev)
+    t = torch.linspace(10, 950, LOOP_MB, device=dev).long()
+    w = torch.ones(LOOP_MB, device=dev)
+    loop._sync_compute()
+    out = {}
+    for p in (0.0, rate):
+        set_dropout_rate(comp, p)
+        set_dropout_rate(master, p)
+        want_fwd, want_bwd = winograd_per_microbatch(comp, p > 0)
+        res = {}
+        for side in ("kernel", "plain", "direct", "float32"):
+            comp.set_winograd(side != "direct")
+            for m in convs:
+                m.conv_fn = (Wg.winograd_conv3x3_plain if side == "plain"
+                             else None)
+            model = master if side == "float32" else comp
+            res[side] = loop_micro_grads(model, loop.tables, micro, t, w,
+                                         noise, dev, seed=42)
+            torch.cuda.empty_cache()
+        comp.set_winograd(True)
+        for m in convs:
+            m.conv_fn = None
+        ref_l, ref_g = res["float32"][:2]
+        flat_ref = torch.cat([r.reshape(-1) for r in ref_g])
+
+        def drift(grads):
+            flat = torch.cat([x.reshape(-1) for x in grads])
+            return {"norm_rel": ((flat - flat_ref).norm()
+                                 / flat_ref.norm()).item(),
+                    "worst_of_tensor_max": max(
+                        ((a - b).abs().max() / b.abs().max()).item()
+                        for a, b in zip(grads, ref_g))}
+        rec = {"dropout": p, "loss": {k: v[0] for k, v in res.items()},
+               "grad_drift_from_float32": {k: drift(res[k][1]) for k in (
+                   "kernel", "plain", "direct")},
+               "kernel_vs_plain_worst_of_tensor_max": max(
+                   ((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(res["kernel"][1], res["plain"][1])),
+               "winograd_forward": res["kernel"][2],
+               "winograd_backward": res["kernel"][3]}
+        fails = []
+        if (res["kernel"][2], res["kernel"][3]) != (want_fwd, want_bwd):
+            fails.append(f"launches {res['kernel'][2:]}, expected "
+                         f"{want_fwd}, {want_bwd}")
+        for side in ("plain", "direct"):
+            if any(res[side][2].values()) or any(res[side][3].values()):
+                fails.append(f"{side} launched {res[side][2:]}")
+        d = rec["grad_drift_from_float32"]
+        for q in ("norm_rel", "worst_of_tensor_max"):
+            for side in ("plain", "direct"):
+                if not d["kernel"][q] <= WINO_DRIFT_RATIO * d[side][q]:
+                    fails.append(f"drift {q}: {d}")
+        for side in ("kernel", "plain", "direct"):
+            if not abs(res[side][0] - ref_l) <= LOOP_LOSS_RTOL * abs(ref_l):
+                fails.append(f"loss {side}: {rec['loss']}")
+        if fails:
+            raise AssertionError(f"train_loop compare at dropout {p}: "
+                                 f"{fails}")
+        out[f"dropout_{p}"] = rec
+        del res
+    set_dropout_rate(comp, rate)
+    set_dropout_rate(master, rate)
+    return out
+
+
+def loop_pngs(root: str, seed: int) -> str:
+    """LOOP_PNGS' seeded PNGs (the port's writer) in root/images."""
+    from kdip_tpu_torch import data
+    folder = os.path.join(root, "images")
+    os.makedirs(folder)
+    rng = np.random.default_rng(seed)
+    i = 0
+    for count, hw in LOOP_PNGS:
+        for _ in range(count):
+            data.write_png(os.path.join(folder, f"{i:05d}.png"),
+                           rng.integers(0, 256, hw + (3,), np.uint8))
+            i += 1
+    return folder
+
+
+class LoopProbe:
+    """A TrainLoop instrumented on the host clock: each step synchronised
+    and timed, each data fetch timed, and each microbatch's Winograd
+    launches."""
+
+    def __init__(self, loop, data):
+        import torch
+        from kdip_tpu_torch.ops import winograd as Wg
+        self.steps, self.fetch_s, self.micro = [], [], []
+        step, micro = loop.run_step, loop.micro_grads
+
+        def run_step(batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            self.steps.append(time.perf_counter() - t0)
+
+        def micro_grads(*a, **kw):
+            before = dict(Wg.launch_counts)
+            out = micro(*a, **kw)
+            self.micro.append({k: v - before[k]
+                               for k, v in Wg.launch_counts.items()})
+            return out
+
+        def fetched():
+            it = iter(data)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.fetch_s.append(time.perf_counter() - t0)
+                yield batch
+        loop.run_step, loop.micro_grads = run_step, micro_grads
+        loop.data = fetched()
+
+
+def phase_train_loop_ffhq_winograd(tmp, dev):
+    """train_loop_ffhq_winograd: `train_loop.TrainLoop` on
+    configs/test_ffhq.json's ADM as `config.make_openai_model` builds it
+    (93,563,910 parameters, learn_sigma, dropout 0.1, the 1000-step linear
+    tables), seeded random float32 masters, the bf16 Winograd torso
+    (compute_dtype), TF32 off; an `ImageDataset` of LOOP_PNGS with random
+    crops, batches(num_workers=2), a new shuffle each epoch; batch LOOP_B
+    in microbatches of LOOP_MB, rescaled_mse, the loss-second-moment
+    sampler, EMAs LOOP_EMA, GNS, save_interval 2. First
+    train_loop_compare; then LOOP_STEPS steps (the Winograd counts reset
+    just before), every microbatch's launches exactly
+    winograd_per_microbatch's under live dropout (0 fused); then a fresh
+    loop resumes from the logdir (params, Adam state, both EMAs and step
+    bit-equal) and takes LOOP_MORE more. Every logged loss finite, gns
+    logged; `ema_0.9999_{LOOP_STEPS}.pt` loads strictly through the guided
+    CLI's loader. Reports s/step (the median after the first), images/s,
+    peak memory and the data fetch's share of the host time. Returns the
+    DWT and Winograd launches of the runs."""
+    import argparse
+
+    import torch
+    from kdip_tpu_torch import config, data, logger, resample, weights
+    from kdip_tpu_torch.cli import sample_condition
+    from kdip_tpu_torch.models.layers import Dropout
+    from kdip_tpu_torch.ops import winograd as Wg
+    from kdip_tpu_torch.train_loop import TrainLoop
+    root = os.path.join(tmp, "train_loop_ffhq_winograd")
+    os.makedirs(root)
+    cfg = config.load_config(config_path("test_ffhq.json"))
+    size = cfg["model"]["input_size"][0]
+    folder = loop_pngs(root, seed=50)
+    ds = data.ImageDataset(folder, size, random_crop=True, seed=50)
+
+    def epochs():
+        e = 0
+        while True:
+            yield from ds.batches(LOOP_B, shuffle=True, seed=e,
+                                  num_workers=2)
+            e += 1
+
+    def make_loop(model, resume):
+        return TrainLoop(
+            model=model, tables=tables, data=None, batch_size=LOOP_B,
+            microbatch=LOOP_MB, lr=1e-4, ema_rate=LOOP_EMA, log_interval=1,
+            save_interval=2, logdir=os.path.join(root, "ckpt"),
+            schedule_sampler=resample.create_named_schedule_sampler(
+                "loss-second-moment", tables.num_timesteps),
+            loss_type="rescaled_mse", resume=resume, seed=50,
+            measure_gns=True, compute_dtype=torch.bfloat16)
+    model, tables = config.make_openai_model(cfg["model"], winograd=True,
+                                             device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    weights.randomize_(model, 50)
+    loop = make_loop(model, resume=False)
+    stream = epochs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    compare = train_loop_compare(loop, dev, size)
+    compare_s = time.perf_counter() - t0
+    compare_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fwd, bwd = winograd_per_microbatch(loop.compute, True)
+    want_micro = {k: fwd[k] + bwd[k] for k in fwd}
+    runs, total = {}, {"winograd_conv3x3": 0, "winograd_conv3x3_fused": 0}
+    with logger.scoped_configure(dir=os.path.join(root, "log"),
+                                 format_strs=["json"]):
+        for name, lp, to in (("first", loop, LOOP_STEPS),
+                             ("resumed", None, LOOP_STEPS + LOOP_MORE)):
+            if lp is None:
+                fresh, _ = config.make_openai_model(
+                    cfg["model"], winograd=True, device=dev)
+                lp = make_loop(fresh, resume=True)
+                restored = {
+                    "step": lp.step == LOOP_STEPS,
+                    "params": all(torch.equal(a, b) for a, b in zip(
+                        loop.params, lp.params)),
+                    "emas": all(torch.equal(a, b) for ea, eb in zip(
+                        loop.ema_models, lp.ema_models) for a, b in zip(
+                        ea.parameters(), eb.parameters())),
+                    "opt": all(torch.equal(v, lp.opt.state[pb][k])
+                               for pa, pb in zip(loop.params, lp.params)
+                               for k, v in loop.opt.state[pa].items())}
+                if not all(restored.values()):
+                    raise AssertionError(f"train_loop resume: {restored}")
+                del loop
+                torch.cuda.empty_cache()
+            probe = LoopProbe(lp, stream)
+            Wg.reset_launch_counts()
+            lp.run_loop(max_steps=to)
+            launches = dict(Wg.launch_counts)
+            secs = probe.steps
+            n_steps = len(secs)
+            rec = {"steps": n_steps, "step_s": secs,
+                   "s_per_step": float(np.median(secs[1:])) if n_steps > 1
+                   else secs[0],
+                   "fetch_s": probe.fetch_s,
+                   # the fetches that fed a step (run_loop draws one more
+                   # batch before it sees max_steps)
+                   "fetch_share": sum(probe.fetch_s[:n_steps]) / (
+                       sum(probe.fetch_s[:n_steps]) + sum(secs)),
+                   "winograd_launches": launches,
+                   "winograd_per_microbatch": probe.micro[0]}
+            rec["images_per_s"] = LOOP_B / rec["s_per_step"]
+            runs[name] = rec
+            bad = [m for m in probe.micro if m != want_micro]
+            micro_n = n_steps * (LOOP_B // LOOP_MB)
+            if (bad or lp.step != to or len(probe.micro) != micro_n
+                    or launches != {k: v * micro_n
+                                    for k, v in want_micro.items()}):
+                raise AssertionError(f"train_loop {name}: {rec}, step "
+                                     f"{lp.step}, want {want_micro}")
+            for k in total:
+                total[k] += launches[k]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logs = [json.loads(line) for line in open(
+        os.path.join(root, "log", "progress.json"))]
+    if (len(logs) != LOOP_STEPS + LOOP_MORE
+            or not all(np.isfinite(r[k]) for r in logs
+                       for k in ("loss", "mse", "vb", "gns"))):
+        raise AssertionError(f"train_loop logs: {logs}")
+    ckpt = os.path.join(root, "ckpt", f"ema_0.9999_{LOOP_STEPS}.pt")
+    cli_model, _ = sample_condition._load_model(argparse.Namespace(
+        checkpoint=ckpt, winograd=True, v2=False, dtype="bfloat16"), cfg,
+        dev)
+    saved = sorted(os.listdir(os.path.join(root, "ckpt")))
+    del cli_model, lp
+    torch.cuda.empty_cache()
+    emit({"phase": "train_loop_ffhq_winograd", "config": "test_ffhq.json",
+          "params": n_params, "batch": LOOP_B, "microbatch": LOOP_MB,
+          "dropout": next(m.p for m in model.modules()
+                          if isinstance(m, Dropout)),
+          "pngs": [[c, list(hw)] for c, hw in LOOP_PNGS],
+          "compare": compare, "compare_s": compare_s,
+          "compare_peak_mem_gib": compare_peak, "runs": runs,
+          "winograd_per_microbatch_expected": want_micro,
+          "restored_bit_equal": restored, "logged": logs,
+          "checkpoints": saved, "ema_loads_in_cli": True,
+          "peak_mem_gib": peak,
+          "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                   "matmul": torch.backends.cuda.matmul.allow_tf32},
+          "nvidia_smi": nvidia_smi()})
+    return {"haar_dwt2": 0, "haar_idwt2": 0, "haar_ot_matvec": 0}, total
+
+
 def phase_analytic_variance_imagenet(tmp, ckpt, lpips_npz):
     """analytic_variance_imagenet: `cli.analytic_variance.main` in-process
     on configs/test_imagenet.json at full width (bf16, the seeded `.pt` at
@@ -2629,10 +2990,13 @@ def winograd_launch_shapes(model, dev):
     t = torch.full((1,), 20, dtype=torch.long, device=dev)
     for m in convs:
         m.conv_fn = record
+    training = model.training
+    model.eval()  # a guided NFE: no live dropout
     try:
         y = model(x, t)
         torch.autograd.grad(y, x, grad_outputs=torch.ones_like(y))
     finally:
+        model.train(training)
         for m in convs:
             m.conv_fn = None
     per_nfe = winograd_per_nfe(model)
@@ -2996,6 +3360,10 @@ def main() -> int:
         name = "train_ffhq_dwt"
         by_slice[name], wino_by_slice[name] = timed(
             name, phase_train_ffhq_dwt, tmp, dev)
+        torch.cuda.empty_cache()
+        name = "train_loop_ffhq_winograd"
+        by_slice[name], wino_by_slice[name] = timed(
+            name, phase_train_loop_ffhq_winograd, tmp, dev)
         torch.cuda.empty_cache()
     name = "nfe_imagenet_winograd"
     by_slice[name], wino_by_slice[name] = timed(name, run_imagenet_nfe, dev,

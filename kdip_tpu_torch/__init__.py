@@ -8,9 +8,10 @@ CUDA kernels live under `csrc/` and are built with nvcc at first use
 """
 
 from . import (autoi, brownian, ckpt, config, data,  # noqa: F401
-               ddpm_sampling, diffusion, guidance, metrics, operators,
-               precond, samplers, sampling_api, schedules, script_util,
-               tfevents, train, utils, weights)
+               ddpm_sampling, diffusion, gns, guidance, logger, metrics,
+               operators, precond, resample, samplers, sampling_api,
+               schedules, script_util, tfevents, train, train_loop, utils,
+               weights)
 from .models import adm, kdiff, layers  # noqa: F401
 from .ops import (dwt, fft, kernels, resize, transforms,  # noqa: F401
                   winograd)

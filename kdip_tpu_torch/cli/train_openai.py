@@ -127,7 +127,9 @@ def main(argv=None) -> train.TrainState:
     config = kconfig.load_config(args.config)
     model_config = config["model"]
     unet, tables = kconfig.make_openai_model(model_config, device=dev)
-    model = adm.ADMUNetV2(unet)
+    # eval(): no live dropout, as kdip_tpu runs this fine-tune's UNet
+    # deterministic (its train_openai.py:125); gradients flow all the same
+    model = adm.ADMUNetV2(unet).eval()
     size = model_config["input_size"][0]
 
     # fresh head, pretrained torso (ref: train_openai.py:119-129)

@@ -8,7 +8,8 @@ the last index down to 0. `model_fn(x, t)` takes the chain's integer
 indices t [B]; a respaced run maps them to the model's timesteps itself
 (`diffusion.model_timesteps`). NCHW layout. Every draw is injectable: the
 initial x as `noise=`, step i's normal as `noise_fn(i)`; otherwise they
-come from `generator` on `device`. `training_losses` is not ported yet.
+come from `generator` on `device`. `training_losses` takes its q-sample
+noise as `noise=`, or draws it from `generator`.
 """
 
 from __future__ import annotations
@@ -213,6 +214,52 @@ def vb_terms_bpd(tables: DiffusionTables, model_fn: Callable, x_start, x_t, t,
     decoder_nll = _mean_flat(decoder_nll) / math.log(2.0)
     return {"output": torch.where(t == 0, decoder_nll, kl),
             "pred_xstart": out["pred_xstart"]}
+
+
+def training_losses(tables: DiffusionTables, model_fn: Callable, x_start, t,
+                    generator: Optional[torch.Generator] = None,
+                    loss_type: str = "mse", learn_sigma: bool = True,
+                    noise=None, predict_xstart: bool = False,
+                    sigma_small: bool = False) -> Dict[str, torch.Tensor]:
+    """The per-example training loss terms, each [B]
+    (ref: gaussian_diffusion.py:744-835; `kdip_tpu` ddpm_sampling.py:
+    211-249). loss_type is mse, rescaled_mse, kl or rescaled_kl. Under the
+    MSE types with `learn_sigma`, "vb" is the VB term with the mean head
+    detached (times T/1000 under rescaled_mse), and "loss" = "mse" +
+    "vb". With `predict_xstart` the MSE target is x_start, else the
+    noise. The noise is `noise=`, else a normal draw from `generator`."""
+    noise = _normal(x_start, noise, generator)
+    x_t = q_sample(tables, x_start, t, noise)
+    terms = {}
+    T = tables.num_timesteps
+    if loss_type in ("kl", "rescaled_kl"):
+        terms["loss"] = vb_terms_bpd(tables, model_fn, x_start, x_t, t,
+                                     clip_denoised=False,
+                                     learn_sigma=learn_sigma,
+                                     predict_xstart=predict_xstart,
+                                     sigma_small=sigma_small)["output"]
+        if loss_type == "rescaled_kl":
+            terms["loss"] = terms["loss"] * T
+        return terms
+    if loss_type not in ("mse", "rescaled_mse"):
+        raise ValueError(f"unknown loss_type {loss_type!r}")
+    model_output = model_fn(x_t, t)
+    C = x_start.shape[1]
+    if learn_sigma:
+        terms["vb"] = vb_terms_bpd(tables, lambda *_: model_output, x_start,
+                                   x_t, t, clip_denoised=False,
+                                   learn_sigma=True, frozen_mean=True,
+                                   predict_xstart=predict_xstart,
+                                   sigma_small=sigma_small)["output"]
+        if loss_type == "rescaled_mse":
+            terms["vb"] = terms["vb"] * T / 1000.0
+        mean_pred = model_output[:, :C]
+    else:
+        mean_pred = model_output
+    target = x_start if predict_xstart else noise
+    terms["mse"] = _mean_flat((target - mean_pred) ** 2)
+    terms["loss"] = terms["mse"] + terms.get("vb", 0.0)
+    return terms
 
 
 def prior_bpd(tables: DiffusionTables, x_start):

@@ -46,7 +46,8 @@ class ADMUNet(nn.Module):
     `label_emb` and a class label `y` to forward; `resblock_updown=False`
     resamples with `Upsample`/`Downsample` (a conv or not, by
     `conv_resample`); `num_heads_upsample` sets the decoder's heads where
-    num_head_channels is -1 (-1: num_heads)."""
+    num_head_channels is -1 (-1: num_heads). `dropout` is the ResBlocks'
+    rate, live under train()."""
 
     def __init__(self, image_size: int = 256, in_channels: int = 3,
                  model_channels: int = 128, out_channels: int = 6,
@@ -59,7 +60,7 @@ class ADMUNet(nn.Module):
                  num_classes: Optional[int] = None,
                  use_scale_shift_norm: bool = True,
                  resblock_updown: bool = True, conv_resample: bool = True,
-                 num_heads_upsample: int = -1):
+                 num_heads_upsample: int = -1, dropout: float = 0.0):
         super().__init__()
         self.image_size = image_size
         self.model_channels = mc = model_channels
@@ -71,7 +72,8 @@ class ADMUNet(nn.Module):
         def res(ch, out_ch=None, up=False, down=False):
             return ResBlock(ch, emb_dim, dtype, out_channels=out_ch,
                             up=up, down=down,
-                            use_scale_shift_norm=use_scale_shift_norm)
+                            use_scale_shift_norm=use_scale_shift_norm,
+                            dropout=dropout)
 
         def attn(ch, heads):
             return AttentionBlock(ch, dtype, num_heads=heads,
@@ -234,8 +236,8 @@ def create_unet(image_size: int = 256, num_channels: int = 128,
                 device="cuda", winograd: bool = False) -> ADMUNet:
     """Flag-compatible factory (ref: guided_diffusion/script_util.py:130-184;
     `kdip_tpu` adm.py:468-500). `channel_mult` is "" (the image size's
-    preset), a comma-separated string or a tuple. `dropout` is accepted
-    and unused: the port runs inference only."""
+    preset), a comma-separated string or a tuple. `dropout` is the
+    ResBlocks' rate, live under train()."""
     if channel_mult == "":
         if image_size not in CHANNEL_MULT:
             raise ValueError(f"no channel multiplier preset for image size "
@@ -258,7 +260,8 @@ def create_unet(image_size: int = 256, num_channels: int = 128,
                    use_scale_shift_norm=use_scale_shift_norm,
                    resblock_updown=resblock_updown,
                    use_new_attention_order=use_new_attention_order,
-                   dtype=dtype, device=device, winograd=winograd)
+                   dropout=dropout, dtype=dtype, device=device,
+                   winograd=winograd)
 
 
 class AttentionPool2d(nn.Module):
@@ -319,7 +322,7 @@ class EncoderADMUNet(nn.Module):
                  resblock_updown: bool = True,
                  use_new_attention_order: bool = False,
                  pool: str = "attention", dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", dropout: float = 0.0):
         super().__init__()
         if pool not in ("adaptive", "attention", "spatial", "spatial_v2"):
             raise NotImplementedError(f"Unexpected {pool} pooling")
@@ -330,7 +333,8 @@ class EncoderADMUNet(nn.Module):
         def res(ch, out_ch=None, down=False):
             return ResBlock(ch, emb_dim, dtype, out_channels=out_ch,
                             down=down,
-                            use_scale_shift_norm=use_scale_shift_norm)
+                            use_scale_shift_norm=use_scale_shift_norm,
+                            dropout=dropout)
 
         def attn(ch):
             return AttentionBlock(ch, dtype, num_heads=num_heads,

@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import Dropout
+
 FIR_KERNELS = {
     "linear": [1 / 8, 3 / 8, 3 / 8, 1 / 8],
     "cubic": [-0.01171875, -0.03515625, 0.11328125, 0.43359375,
@@ -76,23 +78,23 @@ class AdaGN(nn.Module):
         return x * (weight[:, :, None, None] + 1) + bias[:, :, None, None]
 
 
-def _attention(q, k, v, padding=None):
-    """softmax((q s)(k s)^T) v over the last two axes, s = head size^-0.25,
-    the logits and softmax in float32 (`kdip_tpu` kdiff.py:73-76); q
-    [B, h, T, c], k and v [B, h, S, c]; padding [B, S], 1 where a key is
-    padding (an additive -1e4)."""
+def _attention(q, k, v, dropout: Dropout, padding=None):
+    """dropout(softmax((q s)(k s)^T)) v over the last two axes, s = head
+    size^-0.25, the logits and softmax in float32 (`kdip_tpu` kdiff.py:
+    73-79); q [B, h, T, c], k and v [B, h, S, c]; padding [B, S], 1 where
+    a key is padding (an additive -1e4)."""
     scale = k.shape[-1] ** -0.25
     att = (q * scale).float() @ (k * scale).float().transpose(-1, -2)
     if padding is not None:
         att = att - padding[:, None, None, :].float() * 10000
-    return att.softmax(-1).to(v.dtype) @ v
+    return dropout(att.softmax(-1).to(v.dtype)) @ v
 
 
 class SelfAttention2d(nn.Module):
     """(ref: k_diffusion/layers.py:151-170)"""
 
     def __init__(self, c_in: int, n_head: int, norm_groups: int,
-                 feats_in: int):
+                 feats_in: int, dropout_rate: float = 0.0):
         super().__init__()
         if c_in % n_head:
             raise ValueError(f"{c_in} channels in {n_head} heads")
@@ -100,6 +102,7 @@ class SelfAttention2d(nn.Module):
         self.n_head = n_head
         self.qkv_proj = nn.Conv2d(c_in, c_in * 3, 1)
         self.out_proj = nn.Conv2d(c_in, c_in, 1)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, cond):
         n, c, h, w = x.shape
@@ -107,7 +110,8 @@ class SelfAttention2d(nn.Module):
         qkv = qkv.view(n, self.n_head * 3, c // self.n_head,
                        h * w).transpose(2, 3)
         q, k, v = qkv.chunk(3, dim=1)
-        y = _attention(q, k, v).transpose(2, 3).reshape(n, c, h, w)
+        y = _attention(q, k, v, self.dropout).transpose(2, 3).reshape(
+            n, c, h, w)
         return x + self.out_proj(y)
 
 
@@ -119,7 +123,7 @@ class CrossAttention2d(nn.Module):
     an additive -1e4."""
 
     def __init__(self, c_dec: int, c_enc: int, n_head: int,
-                 norm_groups: int, feats_in: int):
+                 norm_groups: int, feats_in: int, dropout_rate: float = 0.0):
         super().__init__()
         self.norm_enc = nn.LayerNorm(c_enc, eps=1e-6)
         self.norm_dec = AdaGN(feats_in, c_dec, norm_groups)
@@ -127,6 +131,7 @@ class CrossAttention2d(nn.Module):
         self.q_proj = nn.Conv2d(c_dec, c_dec, 1)
         self.kv_proj = nn.Linear(c_enc, c_dec * 2)
         self.out_proj = nn.Conv2d(c_dec, c_dec, 1)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, cond, cross, cross_padding):
         n, c, h, w = x.shape
@@ -135,7 +140,7 @@ class CrossAttention2d(nn.Module):
         kv = self.kv_proj(self.norm_enc(cross))
         kv = kv.view(n, -1, self.n_head * 2, c // self.n_head).transpose(1, 2)
         k, v = kv.chunk(2, dim=1)
-        y = _attention(q, k, v, cross_padding).transpose(2, 3)
+        y = _attention(q, k, v, self.dropout, cross_padding).transpose(2, 3)
         return x + self.out_proj(y.reshape(n, c, h, w))
 
 
@@ -178,17 +183,17 @@ class Upsample2d(nn.Module):
 class ResConvBlock(nn.Module):
     """(ref: k_diffusion/models/image_v2.py:16-28): AdaGN, exact GELU, 3x3
     conv, twice (`main.{0,2,4,6}` the norms and convs, the GELUs at 1 and
-    5, the dropouts at 3 and 7 identity at inference), plus the input,
+    5, the dropouts at 3 and 7, live under train()), plus the input,
     through a bias-free 1x1 `skip` where the channel count changes."""
 
     def __init__(self, feats_in: int, c_in: int, c_mid: int, c_out: int,
-                 group_size: int = 32):
+                 group_size: int = 32, dropout_rate: float = 0.0):
         super().__init__()
         self.main = nn.Sequential(
             AdaGN(feats_in, c_in, max(1, c_in // group_size)), nn.GELU(),
-            nn.Conv2d(c_in, c_mid, 3, padding=1), nn.Identity(),
+            nn.Conv2d(c_in, c_mid, 3, padding=1), Dropout(dropout_rate),
             AdaGN(feats_in, c_mid, max(1, c_mid // group_size)), nn.GELU(),
-            nn.Conv2d(c_mid, c_out, 3, padding=1), nn.Identity())
+            nn.Conv2d(c_mid, c_out, 3, padding=1), Dropout(dropout_rate))
         self.skip = (nn.Identity() if c_in == c_out
                      else nn.Conv2d(c_in, c_out, 1, bias=False))
 
@@ -207,17 +212,18 @@ class _Block(nn.ModuleList):
     def __init__(self, n_layers: int, feats_in: int, c_in: int, c_mid: int,
                  c_out: int, group_size: int = 32, head_size: int = 64,
                  self_attn: bool = False, downsample: bool = False,
-                 upsample: bool = False):
+                 upsample: bool = False, dropout_rate: float = 0.0):
         modules = [Downsample2d()] if downsample else []
         for i in range(n_layers):
             my_c_in = c_in if i == 0 else c_mid
             my_c_out = c_mid if i < n_layers - 1 else c_out
             modules.append(ResConvBlock(feats_in, my_c_in, c_mid, my_c_out,
-                                        group_size))
+                                        group_size, dropout_rate))
             if self_attn:
                 modules.append(SelfAttention2d(
                     my_c_out, max(1, my_c_out // head_size),
-                    max(1, my_c_out // group_size), feats_in))
+                    max(1, my_c_out // group_size), feats_in,
+                    dropout_rate))
         if upsample:
             modules.append(Upsample2d())
         super().__init__(modules)
@@ -258,8 +264,9 @@ class _ImageDenoiser(nn.Module):
     the forward up to proj_out): sigma's Fourier features plus the mapping
     conditioning, the 2-layer GELU MappingNet (`mapping.{0,2}`),
     `unet_cond` concatenated on the channels, pixel unshuffle by
-    patch_size, proj_in, the UNet, proj_out. `dropout_rate` is accepted
-    and unused: the port runs inference only."""
+    patch_size, proj_in, the UNet, proj_out. `dropout_rate` is every
+    block's dropout (after each conv of a ResConvBlock, on the attention
+    weights), live under train()."""
 
     def __init__(self, c_in: int, feats_in: int, depths: Sequence[int],
                  channels: Sequence[int], self_attn_depths: Sequence[bool],
@@ -288,12 +295,14 @@ class _ImageDenoiser(nn.Module):
         d_blocks = [_Block(depths[i], feats_in, channels[max(0, i - 1)],
                            channels[i], channels[i],
                            self_attn=self_attn_depths[i],
-                           downsample=i > skip_stages) for i in range(n)]
+                           downsample=i > skip_stages,
+                           dropout_rate=dropout_rate) for i in range(n)]
         u_blocks = [_Block(depths[i], feats_in,
                            channels[i] * 2 if i < n - 1 else channels[i],
                            channels[i], channels[max(0, i - 1)],
                            self_attn=self_attn_depths[i],
-                           upsample=i > skip_stages) for i in range(n)]
+                           upsample=i > skip_stages,
+                           dropout_rate=dropout_rate) for i in range(n)]
         self.u_net = UNet(d_blocks, reversed(u_blocks), skip_stages)
         self.to(device)
 

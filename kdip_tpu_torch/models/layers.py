@@ -161,6 +161,46 @@ class Downsample(nn.Module):
         return self.op(x)
 
 
+class Dropout(nn.Module):
+    """Dropout at rate p under train(), the identity under eval() or at
+    p = 0, as flax's nn.Dropout computes it (`kdip_tpu`'s ResBlock and
+    k-diffusion blocks): each value kept with probability 1 - p, a kept
+    value divided by 1 - p in x's dtype, the rest 0. The keep mask is
+    drawn from `generator` where one is set (`set_dropout_generator`),
+    else from torch's default generator on x's device."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate {p} is not in [0, 1)")
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    @property
+    def live(self) -> bool:
+        return self.training and self.p > 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.live:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Draws every Dropout mask of `model` from `generator` (None: torch's
+    default generator). Two models of one architecture, each given a
+    generator seeded alike, draw the same masks in the same forward."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class TimestepEmbedSequential(nn.Sequential):
     """Sequential that passes the timestep embedding to its ResBlocks
     (ref: guided_diffusion/unet.py:66-78)."""
@@ -178,9 +218,14 @@ class ResBlock(nn.Module):
     `use_scale_shift_norm=False` the embedding is added to h before
     out_layers.
 
+    `dropout` (out_layers[2]) is live under train() and the identity under
+    eval(), as `kdip_tpu`'s `deterministic` flag sets it.
+
     `winograd` (`kdip_tpu` layers.py:263-381) takes effect in a bfloat16 or
     float16 torso, checked at forward time: its two 3x3 convs run the
-    Winograd kernel with GroupNorm + SiLU fused into their input load.
+    Winograd kernel, with GroupNorm + SiLU fused into their input load
+    where no dropout is live (layers.py:311-313); under live dropout both
+    run the plain kernel on the unfused path.
     in_conv fuses in every block that does not downsample (an up-block
     takes the affine from x before the nearest upsample, which commutes
     with the pointwise prologue); a down-block runs the plain kernel on the
@@ -194,7 +239,7 @@ class ResBlock(nn.Module):
                  out_channels: Optional[int] = None,
                  up: bool = False, down: bool = False,
                  winograd: bool = False,
-                 use_scale_shift_norm: bool = True):
+                 use_scale_shift_norm: bool = True, dropout: float = 0.0):
         super().__init__()
         out_ch = out_channels or channels
         self.up, self.down = up, down
@@ -206,9 +251,8 @@ class ResBlock(nn.Module):
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_channels, (
                 2 * out_ch if use_scale_shift_norm else out_ch), dtype=dtype))
-        # index 2 is the reference's Dropout: identity at inference
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_ch), nn.SiLU(), nn.Identity(),
+            GroupNorm32(out_ch), nn.SiLU(), Dropout(dropout),
             Conv2d(out_ch, out_ch, 3, dtype, winograd))
         if out_ch == channels:
             self.skip_connection = nn.Identity()
@@ -224,9 +268,9 @@ class ResBlock(nn.Module):
 
     def forward(self, x, emb):
         norm, act, conv = self.in_layers
-        out_norm, out_act, _, out_conv = self.out_layers
-        if self.winograd and conv.weight.dtype in (torch.bfloat16,
-                                                   torch.float16):
+        out_norm, out_act, drop, out_conv = self.out_layers
+        if (self.winograd and not drop.live
+                and conv.weight.dtype in (torch.bfloat16, torch.float16)):
             return self._forward_fused(x, emb)
         h = act(norm(x))
         if self.up or self.down:
@@ -235,9 +279,9 @@ class ResBlock(nn.Module):
         emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = out_conv(out_act(out_norm(h) * (1 + scale) + shift))
+            h = out_conv(drop(out_act(out_norm(h) * (1 + scale) + shift)))
         else:
-            h = out_conv(out_act(out_norm(h + emb_out)))
+            h = out_conv(drop(out_act(out_norm(h + emb_out))))
         return self.skip_connection(x) + h
 
     def _forward_fused(self, x, emb):

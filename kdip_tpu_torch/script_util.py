@@ -141,8 +141,8 @@ def create_model(image_size, num_channels, num_res_blocks, channel_mult="",
                  device="cuda") -> adm.ADMUNet:
     """(ref: script_util.py:130-184): `adm.create_unet` with
     guided-diffusion's defaults and the torso dtype from use_fp16.
-    use_checkpoint is accepted for the flags' sake: the port runs
-    inference only."""
+    use_checkpoint (gradient checkpointing) is accepted for the flags'
+    sake and unused; `dropout` is live under train()."""
     del use_checkpoint
     return adm.create_unet(
         image_size, num_channels, num_res_blocks, channel_mult=channel_mult,
@@ -227,7 +227,7 @@ def sr_create_model(large_size, small_size, num_channels, num_res_blocks,
                     resblock_updown, use_fp16, *,
                     device="cuda") -> adm.SuperResADMUNet:
     """(ref: script_util.py:334-383)"""
-    del small_size, use_checkpoint, dropout
+    del small_size, use_checkpoint
     if large_size in (512, 256):
         channel_mult = (1, 1, 2, 2, 4, 4)
     elif large_size == 64:
@@ -246,8 +246,8 @@ def sr_create_model(large_size, small_size, num_channels, num_res_blocks,
         num_heads=num_heads, num_head_channels=num_head_channels,
         num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm,
-        resblock_updown=resblock_updown, dtype=_dtype(use_fp16),
-        device=device)
+        resblock_updown=resblock_updown, dropout=dropout,
+        dtype=_dtype(use_fp16), device=device)
 
 
 def create_gaussian_diffusion(*, steps=1000, learn_sigma=False,

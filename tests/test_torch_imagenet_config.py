@@ -63,6 +63,9 @@ def test_reduced_width_matches_kdip_tpu():
     params = random_flax_params(jm.init, jnp.asarray(x), jnp.asarray(t),
                                 seed=2)
     tm.load_state_dict(P.weights.from_jax_params(params))
+    # the config's dropout 0.1 is live under train(); jm.apply is
+    # deterministic
+    tm.eval()
     f = jax.jit(lambda a: jm.apply({"params": params}, a, jnp.asarray(t)))
     y_j, vjp = jax.vjp(f, jnp.asarray(x))
     g_j = vjp(jnp.asarray(ct))[0]
