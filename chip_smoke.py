@@ -190,8 +190,19 @@ each printing one JSON line:
    resume restoring the state bit for bit, and 2 more, every
    microbatch's launches exact; the saved EMA loaded by the guided CLI's
    loader; s/step, images/s, peak memory and the data fetch's share;
+16g. evaluate_fid_inception: the FID/KID CLI
+   (`kdip_tpu_torch.cli.evaluate.main`, in-process) over two folders of
+   2100 seeded 256 px PNGs made on the card ("fake" a noised copy of
+   "real") with a full-width InceptionV3 of seeded weights in a
+   pt_inception `.pth`, TF32 off: the inception backbone (B=64), pixels on
+   256 of each, --paired with LPIPS on 64 pairs, and the refusals of --backbone clip (no transformers) and
+   --dp; the card's FID/KID against float64 on the CPU from the same
+   features, card against CPU features of 16 images; wall seconds,
+   images/s end to end and of the forward alone, the data fetch's share,
+   the busy share of one traced batch, ms of sqrtm_eig at D=2048, peak
+   memory; no kernel launch;
 21. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   3a, 4a, 7, 10, 12, 16-16f and 18-20), its error, its time against its
+   3a, 4a, 7, 10, 12, 16-16g and 18-20), its error, its time against its
    plain version's, its bound and, for the Winograd kernels, cuDNN's
    direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
@@ -206,6 +217,7 @@ without the package beside it, it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -333,6 +345,38 @@ _MSE_SIGMAS = np.geomspace(1e-2, 80.0, 64).astype(np.float32)
 RECON_MSE = {"sigmas": _MSE_SIGMAS,
              "mse_list": (0.5 * _MSE_SIGMAS ** 2 / (1 + _MSE_SIGMAS ** 2)
                           ).astype(np.float32)}
+# evaluate_fid_inception: the FID/KID CLI over two folders of EVAL_IMAGES
+# seeded EVAL_SIZE px PNGs each (n - 1 >= 2048, so both covariances are
+# full rank, as in a 50k-image FID), "fake" a copy of "real" with
+# N(0, EVAL_NOISE) added in 8-bit levels; the pixels run on the first
+# EVAL_PIXELS images of each (its 3072 features are rank-deficient at any
+# n here, and a run over all of them took 26-37 s, the data fetch 93-96%
+# of it; H100 80GB HBM3, 700 W); the paired run on EVAL_PAIRED pairs;
+# card against CPU features on EVAL_CPU_IMAGES images within EVAL_CPU_TOL
+# of the largest |feature|
+EVAL_IMAGES = 2100
+EVAL_SIZE = 256
+EVAL_BATCH = 64
+EVAL_PIXELS = 256
+EVAL_PAIRED = 64
+EVAL_NOISE = 24.0
+EVAL_CALIB = 64                 # images whose statistics set the BN stats
+EVAL_CPU_IMAGES = 16
+EVAL_CPU_TOL = 1e-3
+# ... and those images' features must differ from each other (the least
+# max-abs difference of two of them) by at least EVAL_SPREAD of the
+# largest |feature|, 10x EVAL_CPU_TOL, so that features that hardly depend
+# on the input cannot pass that comparison
+EVAL_SPREAD = 1e-2
+INCEPTION_FC = (1008, 2048)     # pt_inception's fc.weight (manifest)
+# the card's float32 FID / KID against float64 on the CPU from the same
+# features: |gap| <= FID_GAP_TRACE * (tr cov_real + tr cov_fake) and
+# KID_GAP_KERNEL * the mean kernel value. Set before the first card run
+# from a CPU estimate on these images and weights: 1.6e-3 and 5.4e-8 (a
+# sample covariance of 2100 in 2048 dimensions has eigenvalues down to
+# ~1e-7 of its largest, which float32's eigh resolves only roughly)
+FID_GAP_TRACE = 1e-2
+KID_GAP_KERNEL = 1e-6
 DWT_TOL = 1e-6      # kernel vs plain: the same float32 roundings (phase 2)
 DWT_EQUAL = 0.999   # least bit-equal share of the fused matvec (phase 2)
 CHAIN_LEVELS = (4, 5, 6, 7, 8)  # phase 2: chained passes, up to 1x1 at 256
@@ -2961,6 +3005,369 @@ def phase_uncond_cpu_vs_card(dev):
     return dict(D.launch_counts), dict(Wg.launch_counts)
 
 
+def eval_images(seed: int, n: int, dev) -> np.ndarray:
+    """n seeded uint8 [EVAL_SIZE, EVAL_SIZE, 3] images, made on dev from a
+    torch.Generator there: smooth random fields (9 x 9 x 3 uniform levels,
+    bicubic up to EVAL_SIZE) with N(0, 8) grain, so that neighbouring
+    pixels correlate as in photographs (in numpy on the host these took
+    most of the 20-26 s that writing the folders took; H100 80GB HBM3,
+    700 W)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(seed)
+    out = np.empty((n, EVAL_SIZE, EVAL_SIZE, 3), np.uint8)
+    for i in range(0, n, 256):
+        m = min(256, n - i)
+        low = 255 * torch.rand((m, 3, 9, 9), generator=g, device=dev)
+        img = F.interpolate(low, size=(EVAL_SIZE, EVAL_SIZE), mode="bicubic",
+                            align_corners=False)
+        img += 8 * torch.randn(img.shape, generator=g, device=dev)
+        out[i:i + m] = img.round().clamp(0, 255).to(torch.uint8).permute(
+            0, 2, 3, 1).cpu().numpy()
+    return out
+
+
+def noised(images: np.ndarray, g, dev) -> np.ndarray:
+    """uint8 images with N(0, EVAL_NOISE) added on dev (generator g),
+    rounded and clipped to 8-bit levels."""
+    import torch
+    x = torch.from_numpy(images).to(dev, torch.float32)
+    x += EVAL_NOISE * torch.randn(x.shape, generator=g, device=dev)
+    return x.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def write_eval_folders(root: str, seed: int, n: int, dev):
+    """root/real and root/fake: n eval_images, and each `noised`, written
+    by `data.write_png` on 8 threads (zlib releases the GIL). Returns the
+    two folders."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from kdip_tpu_torch import data
+    real = eval_images(seed, n, dev)
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    dirs = [os.path.join(root, d) for d in ("real", "fake")]
+    for d in dirs:
+        os.makedirs(d)
+    with ThreadPoolExecutor(8) as pool:
+        futures = []
+        for i0 in range(0, n, 256):
+            chunk = real[i0:i0 + 256]
+            fake = noised(chunk, g, dev)
+            for j in range(len(chunk)):
+                name = f"{i0 + j:05d}.png"
+                futures += [pool.submit(data.write_png,
+                                        os.path.join(d, name), img[j])
+                            for d, img in zip(dirs, (chunk, fake))]
+        for f in futures:
+            f.result()
+    return dirs
+
+
+def random_inception_state_dict(dev, seed: int):
+    """A full-width InceptionV3 (Mixed_5b to Mixed_7c, 2048 features) in
+    pt_inception naming: torch's default conv init from
+    torch.manual_seed(seed); each BatchNorm's weight U(0.5, 1.5) and bias
+    N(0, 0.1), as tests/test_inception_backbone.py draws them; its running
+    statistics from one train-mode pass on dev over EVAL_CALIB images of
+    `eval_images(seed)`, the second half `noised` (momentum None: the
+    batch's mean and unbiased variance), as a trained network's match its
+    data (calibrated on clean images alone, the noised ones' features had
+    ~50x the variance on the CPU). With the test's random statistics
+    instead, the features of different images differ by
+    ~4e-8 of their size (measured on the CPU), and an FID of them is
+    float32 noise. Plus an `fc.weight` / `fc.bias` of the manifest's
+    shapes, which the extractor must drop. On the CPU."""
+    import torch
+    from kdip_tpu_torch.models.inception import InceptionV3Features
+    torch.manual_seed(seed)
+    model = InceptionV3Features()
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, torch.nn.BatchNorm2d):
+                bn.weight.uniform_(0.5, 1.5)
+                bn.bias.normal_(0, 0.1)
+                bn.momentum = None
+                bn.reset_running_stats()
+        calib = eval_images(seed, EVAL_CALIB, dev)
+        half = EVAL_CALIB // 2
+        calib[half:] = noised(calib[half:], torch.Generator(dev).manual_seed(
+            seed), dev)
+        model.to(dev).train()(torch.from_numpy(
+            calib.transpose(0, 3, 1, 2) / 127.5 - 1).to(dev, torch.float32))
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    sd["fc.weight"] = 0.01 * torch.randn(INCEPTION_FC, generator=g)
+    sd["fc.bias"] = torch.zeros(INCEPTION_FC[0])
+    return sd
+
+
+class EvalProbe:
+    """`cli.evaluate.main` instrumented on the host clock: the time spent
+    waiting for each batch of `FolderOfImages.batches`, and each folder's
+    features as `folder_features` returns them."""
+
+    def __init__(self):
+        self.fetch_s, self.features = [], []
+
+    @contextlib.contextmanager
+    def patched(self):
+        from kdip_tpu_torch import data
+        from kdip_tpu_torch.cli import evaluate
+        batches, features = data.FolderOfImages.batches, \
+            evaluate.folder_features
+        fetch_s, recorded = self.fetch_s, self.features
+
+        def timed_batches(ds, *a, **kw):
+            it = batches(ds, *a, **kw)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    fetch_s.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                it.close()
+
+        def folder_features(*a, **kw):
+            out = features(*a, **kw)
+            recorded.append(out)
+            return out
+        data.FolderOfImages.batches = timed_batches
+        evaluate.folder_features = folder_features
+        try:
+            yield self
+        finally:
+            data.FolderOfImages.batches = batches
+            evaluate.folder_features = features
+
+
+def conv_flops(model, x) -> int:
+    """The multiply-adds x2 of every Conv2d of model(x), from the shapes a
+    forward hook sees."""
+    import torch
+    total = [0]
+
+    def hook(m, _, out):
+        k = m.weight[0].numel()  # C_in / groups * kh * kw
+        total[0] += 2 * k * out.numel()
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def feature_spread(feats) -> float:
+    """The least max-abs difference between two rows of feats, over the
+    largest |feature|: how far the features of different images part."""
+    d = (feats[:, None] - feats[None]).abs().amax(-1)
+    d.fill_diagonal_(float("inf"))
+    return float(d.min() / feats.abs().max())
+
+
+def refused(argv, hide_transformers: bool = False) -> str:
+    """The message of the SystemExit that `cli.evaluate.main(argv)` must
+    raise; with hide_transformers, as if transformers were not installed
+    (sys.modules' None entry makes its import fail)."""
+    from kdip_tpu_torch.cli import evaluate
+    saved = sys.modules.get("transformers", False)
+    if hide_transformers:
+        sys.modules["transformers"] = None
+    try:
+        evaluate.main(argv)
+    except SystemExit as e:
+        return str(e)
+    finally:
+        if hide_transformers:
+            if saved is False:
+                del sys.modules["transformers"]
+            else:
+                sys.modules["transformers"] = saved
+    raise AssertionError(f"evaluate {argv} was not refused")
+
+
+def phase_evaluate_fid_inception(tmp, dev, lpips_npz):
+    """evaluate_fid_inception: the FID/KID CLI (`kdip_tpu_torch.cli.
+    evaluate.main`, in-process) on two folders of EVAL_IMAGES seeded
+    EVAL_SIZE px PNGs (`write_eval_folders`), with a full-width InceptionV3
+    of seeded weights in a pt_inception `.pth`
+    (`random_inception_state_dict`; its fc.* dropped by the loader), TF32
+    off: the inception backbone at --batch-size EVAL_BATCH, the pixels
+    backbone on EVAL_PIXELS images of each folder, --paired with LPIPS on
+    EVAL_PAIRED pairs, then --backbone clip with transformers hidden
+    (refused, naming it) and --dp (refused, naming ROADMAP entry 9).
+    Checks each run's n_real = n_fake, finite metrics, the inception
+    fid >= 0; the card's FID and KID against float64 on the CPU
+    from the same card features within FID_GAP_TRACE of the covariances'
+    traces and KID_GAP_KERNEL of the mean kernel value; and the card's
+    features of EVAL_CPU_IMAGES images against the CPU port's within
+    EVAL_CPU_TOL of the largest |feature|, those features parting by at
+    least EVAL_SPREAD (`feature_spread`). Reports each run's wall
+    seconds, images/s end to end and of the forward alone
+    (`profiling.timeit`, B=EVAL_BATCH), the data fetch's share of the
+    host time, the device busy share of one traced batch
+    (`profiling.trace`), ms of `sqrtm_eig` at D=2048, peak memory; no
+    DWT or Winograd launch. Returns those (zero) launch counts."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from kdip_tpu_torch import data, evaluation, profiling
+    from kdip_tpu_torch.models.inception import make_inception_extractor
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import winograd as Wg
+    root = os.path.join(tmp, "evaluate_fid_inception")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    real, fake = write_eval_folders(root, seed=61, n=EVAL_IMAGES, dev=dev)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = random_inception_state_dict(dev, seed=60)
+    pth = os.path.join(root, "pt_inception_random.pth")
+    torch.save(sd, pth)
+    weights_s = time.perf_counter() - t0
+    for counts in (D.launch_counts, Wg.launch_counts):
+        counts.update({k: 0 for k in counts})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    walls, probes = {}, {}
+
+    def cli(name, *argv):
+        from kdip_tpu_torch.cli import evaluate
+        probes[name] = probe = EvalProbe()
+        with probe.patched():
+            t = time.perf_counter()
+            out = evaluate.main([real, fake, *argv, "--out",
+                                 os.path.join(root, f"{name}.json")])
+            walls[name] = time.perf_counter() - t
+        return out
+
+    common = ("--size", str(EVAL_SIZE), "--batch-size", str(EVAL_BATCH))
+    inc = cli("inception", "--backbone", "inception", "--weights", pth,
+              *common)
+    pix = cli("pixels", "--backbone", "pixels", *common, "--max-images",
+              str(EVAL_PIXELS))
+    paired = cli("paired", "--paired", "--lpips-weights", lpips_npz,
+                 "--size", str(EVAL_SIZE), "--max-images", str(EVAL_PAIRED))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the pixels backbone's 3072 features of EVAL_PIXELS images have
+    # rank-deficient covariances, whose float32 FID may round below 0
+    for name, out, n in (("inception", inc, EVAL_IMAGES),
+                         ("pixels", pix, EVAL_PIXELS)):
+        if (out["n_real"], out["n_fake"]) != (n, n) or \
+                not (np.isfinite(out["fid"]) and np.isfinite(out["kid"])) \
+                or (name == "inception" and out["fid"] < 0):
+            raise AssertionError(f"evaluate --backbone {name}: {out}")
+    if paired["n"] != EVAL_PAIRED or not all(
+            np.isfinite(paired[k]) for k in ("psnr", "ssim", "lpips")):
+        raise AssertionError(f"evaluate --paired: {paired}")
+
+    # float32 on the card against float64 on the CPU, the same features
+    f_real, f_fake = probes["inception"].features
+    if tuple(f_real.shape) != (EVAL_IMAGES, 2048) or not bool(
+            torch.isfinite(f_real).all() & torch.isfinite(f_fake).all()):
+        raise AssertionError(f"inception features {tuple(f_real.shape)}")
+    r64, f64 = f_real.double().cpu(), f_fake.double().cpu()
+    fid64 = float(evaluation.fid(r64, f64))
+    kid64 = float(evaluation.kid(r64, f64))
+    trace_sum = float(torch.trace(torch.cov(r64.T))
+                      + torch.trace(torch.cov(f64.T)))
+    kernel_mean = float(evaluation.polynomial_kernel(r64, r64).mean())
+    fid_gap, kid_gap = abs(inc["fid"] - fid64), abs(inc["kid"] - kid64)
+    if fid_gap > FID_GAP_TRACE * trace_sum or \
+            kid_gap > KID_GAP_KERNEL * kernel_mean:
+        raise AssertionError(
+            f"card FID {inc['fid']} / KID {inc['kid']} against float64 "
+            f"{fid64} / {kid64}: gaps {fid_gap} > {FID_GAP_TRACE} x "
+            f"{trace_sum} or {kid_gap} > {KID_GAP_KERNEL} x {kernel_mean}")
+
+    # card against the CPU port on the first images of real/
+    ds = data.FolderOfImages(real, size=EVAL_SIZE)
+    first = torch.from_numpy(np.stack([ds[i][0] for i in range(EVAL_BATCH)]))
+    cpu = make_inception_extractor(sd, "cpu")(first[:EVAL_CPU_IMAGES])
+    card = f_real[:EVAL_CPU_IMAGES].cpu()
+    cpu_err = float((cpu - card).abs().max() / card.abs().max())
+    spread = feature_spread(card)
+    if not cpu_err <= EVAL_CPU_TOL or not spread >= EVAL_SPREAD:
+        raise AssertionError(f"inception features, card vs CPU: {cpu_err} "
+                             f"of the largest (<= {EVAL_CPU_TOL}); spread "
+                             f"{spread} (>= {EVAL_SPREAD})")
+
+    # the forward alone, one traced batch, sqrtm_eig at D = 2048
+    extract = make_inception_extractor(sd, dev)
+    x = first.to(dev)
+    forward_s = profiling.timeit(extract, x, iters=10, warmup=2)
+    flops = conv_flops(extract.model, x[:1])
+    # a trace that follows a long one can lose its first kernels
+    # (trace_device_events): a batch and a spin kernel lead in, and the
+    # events after the spin are the traced batch's
+    with profiling.trace(os.path.join(root, "trace")) as prof:
+        extract(x)
+        torch.cuda._sleep(1000)
+        extract(x)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [j for j, e in enumerate(events) if "spin_kernel" in e.name]
+    kernels = device_events_by_name(events[marks[0] + 1:] if marks else None)
+    busy_ms = sum(k[0] for k in kernels)
+    cov = torch.cov(f_real.T)
+    sqrtm_s = profiling.timeit(evaluation.sqrtm_eig, cov, iters=5, warmup=1)
+    del extract, x, cov
+
+    clip_msg = refused([real, fake, "--backbone", "clip", "--weights", root],
+                       hide_transformers=True)
+    dp_msg = refused([real, fake, "--dp"])
+    if "transformers" not in clip_msg or "entry 9" not in dp_msg:
+        raise AssertionError(f"refusals: {clip_msg!r} / {dp_msg!r}")
+    launches = dict(D.launch_counts), dict(Wg.launch_counts)
+    if any(v for c in launches for v in c.values()):
+        raise AssertionError(f"evaluation launched a kernel: {launches}")
+    # --paired reads items one by one, not through batches
+    fetch = {k: sum(probes[k].fetch_s) for k in ("inception", "pixels")}
+    emit({"phase": "evaluate_fid_inception", "nvidia_smi": nvidia_smi(),
+          "images": EVAL_IMAGES, "size": EVAL_SIZE, "batch": EVAL_BATCH,
+          "write_pngs_s": write_s, "weights_s": weights_s,
+          "cli_wall_s": walls,
+          "pixels_images": EVAL_PIXELS,
+          "images_per_s_end_to_end": {
+              "inception": 2 * EVAL_IMAGES / walls["inception"],
+              "pixels": 2 * EVAL_PIXELS / walls["pixels"]},
+          "fetch_s": fetch,
+          "fetch_share": {k: fetch[k] / walls[k] for k in fetch},
+          "forward_ms_b64": 1e3 * forward_s,
+          "forward_images_per_s": EVAL_BATCH / forward_s,
+          "gflop_per_image": flops / 1e9,
+          "forward_tflops": flops * EVAL_BATCH / forward_s / 1e12,
+          "device_busy_ms_b64": busy_ms if kernels else "not measured",
+          "device_busy_share": (busy_ms / (1e3 * forward_s) if kernels
+                                else "not measured"),
+          "device_ms_by_kind": device_ms_by_kind(kernels),
+          "top_kernels_ms": [[round(k[0], 4), k[1], k[2][:80]]
+                             for k in kernels[:6]],
+          "sqrtm_eig_ms_d2048": 1e3 * sqrtm_s,
+          "fid": inc["fid"], "kid": inc["kid"], "fid_f64_cpu": fid64,
+          "kid_f64_cpu": kid64, "fid_gap": fid_gap, "kid_gap": kid_gap,
+          "fid_gap_bound": FID_GAP_TRACE * trace_sum,
+          "kid_gap_bound": KID_GAP_KERNEL * kernel_mean,
+          "cov_trace_sum": trace_sum, "kernel_mean": kernel_mean,
+          "pixels": {k: pix[k] for k in ("fid", "kid")}, "paired": paired,
+          "cpu_vs_card_rel_err": cpu_err, "feature_spread": spread,
+          "peak_mem_gib": peak,
+          "clip_refusal": clip_msg, "dp_refusal": dp_msg,
+          "dwt_launches": launches[0], "winograd_launches": launches[1]})
+    return launches
+
+
 def winograd_launch_shapes(model, dev):
     """{(entry point, B, C, F, H, W): launches} of one UNet forward and its
     vjp at B = 1, as a guided NFE runs them under the per-sample loop,
@@ -3364,6 +3771,10 @@ def main() -> int:
         name = "train_loop_ffhq_winograd"
         by_slice[name], wino_by_slice[name] = timed(
             name, phase_train_loop_ffhq_winograd, tmp, dev)
+        torch.cuda.empty_cache()
+        name = "evaluate_fid_inception"
+        by_slice[name], wino_by_slice[name] = timed(
+            name, phase_evaluate_fid_inception, tmp, dev, lpips_npz)
         torch.cuda.empty_cache()
     name = "nfe_imagenet_winograd"
     by_slice[name], wino_by_slice[name] = timed(name, run_imagenet_nfe, dev,

@@ -41,13 +41,14 @@ LPIPS_NOTE = (
     "computed with converted weights; converter unvalidated against "
     "published lpips package outputs in this environment. To validate: "
     "check the weight files against kdip_tpu/manifests/lpips_vgg16.json "
-    "(scripts/make_weight_manifests.py --check), convert them to the npz "
-    "that --lpips-weights reads (`python -m kdip_tpu.cli.convert_weights "
-    "lpips --src vgg16-397923af.pth --lin lpips/weights/v0.1/vgg.pth --out "
-    "lpips_vgg.npz`), which kdip_tpu_torch.weights.lpips_from_jax_params "
-    "turns into the port's tensors, then compare "
-    "kdip_tpu_torch.metrics.lpips_vgg to lpips.LPIPS(net='vgg') on shared "
-    "inputs")
+    "(scripts/make_weight_manifests.py --check), convert them with "
+    "kdip_tpu_torch.metrics.convert_lpips_weights(torch.load("
+    "'vgg16-397923af.pth'), torch.load('lpips/weights/v0.1/vgg.pth')) and "
+    "save the tree as the npz that --lpips-weights reads (np.savez("
+    "'lpips_vgg.npz', params=np.array(tree, dtype=object))), which "
+    "kdip_tpu_torch.weights.lpips_from_jax_params turns into the port's "
+    "tensors, then compare kdip_tpu_torch.metrics.lpips_vgg to "
+    "lpips.LPIPS(net='vgg') on shared inputs")
 
 
 def build_argparser():
@@ -137,6 +138,17 @@ def _generators(seed: int, start: int, dev: torch.device):
     starts at image `start` (jax's fold_in(key, 2*start) and 2*start+1)."""
     return [seeded_generator(dev, seed, stream)
             for stream in (2 * start, 2 * start + 1)]
+
+
+def load_lpips_params(path: str, dev: torch.device):
+    """`metrics.lpips_vgg`'s tensors on dev from kdip_tpu's LPIPS npz: its
+    param tree under "params" (a pickled object, as
+    `metrics.convert_lpips_weights`' tree is saved), or convert_weights'
+    flat names."""
+    with np.load(path, allow_pickle=True) as lp:
+        tree = lp["params"].item() if "params" in lp else dict(lp)
+    return {k: v.to(dev) for k, v in
+            weights.lpips_from_jax_params(tree).items()}
 
 
 def _recon_mse(path: str):
@@ -243,12 +255,7 @@ def main(argv=None):
 
     lpips_params = None
     if args.lpips_weights:
-        # kdip_tpu's npz: its param tree under "params" (a pickled
-        # object), or convert_weights' flat names
-        with np.load(args.lpips_weights, allow_pickle=True) as lp:
-            tree = lp["params"].item() if "params" in lp else dict(lp)
-        lpips_params = {k: v.to(dev) for k, v in
-                        weights.lpips_from_jax_params(tree).items()}
+        lpips_params = load_lpips_params(args.lpips_weights, dev)
 
     os.makedirs(args.logdir, exist_ok=True)
     kconfig.save_yaml(vars(args), os.path.join(args.logdir, "args.yaml"))

@@ -127,27 +127,28 @@ def read_png(path) -> np.ndarray:
     if len(raw) != h * (1 + stride):
         raise ValueError(f"{path}: {len(raw)} bytes of image data for "
                          f"{h} rows of {stride}")
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        start = y * (1 + stride)
-        ftype = raw[start]
-        line = np.frombuffer(raw, np.uint8, stride, start + 1)
-        if ftype == 0:      # None
-            cur = line
-        elif ftype == 1:    # Sub: a running sum per channel, mod 256
-            cur = np.cumsum(line.reshape(w, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif ftype == 2:    # Up
-            cur = line + prev
-        elif ftype == 3:
-            cur = _unfilter_average(line.tobytes(), prev.tobytes(), bpp)
-        elif ftype == 4:
-            cur = _unfilter_paeth(line.tobytes(), prev.tobytes(), bpp)
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + stride)
+    ftypes, lines = rows[:, 0], rows[:, 1:]
+    if h and ftypes.max() > 4:
+        y = int(np.argmax(ftypes > 4))
+        raise ValueError(f"{path}: row {y} has filter type {ftypes[y]}")
+    # None and Sub rows need no row above: all of them at once, so that
+    # an unfiltered file (`write_png`'s) decodes without a Python loop
+    out = np.array(lines)       # the None rows; the others overwritten
+    sub = np.flatnonzero(ftypes == 1)
+    if len(sub):    # Sub: a running sum per channel, mod 256
+        out[sub] = np.cumsum(lines[sub].reshape(len(sub), w, bpp), axis=1,
+                             dtype=np.uint8).reshape(len(sub), stride)
+    # Up, Average and Paeth rows in order, each on the row above it
+    zero = np.zeros(stride, np.uint8)
+    for y in np.flatnonzero(ftypes >= 2):
+        prev, line = (out[y - 1] if y else zero), lines[y]
+        if ftypes[y] == 2:      # Up
+            out[y] = line + prev
+        elif ftypes[y] == 3:
+            out[y] = _unfilter_average(line.tobytes(), prev.tobytes(), bpp)
         else:
-            raise ValueError(f"{path}: row {y} has filter type {ftype}")
-        out[y] = cur
-        prev = out[y]
+            out[y] = _unfilter_paeth(line.tobytes(), prev.tobytes(), bpp)
     return out.reshape(h, w, bpp)
 
 

@@ -7,6 +7,8 @@ uses (skimage's defaults: 7x7 uniform window, K1=0.01, K2=0.03, sample
 covariance, channel-averaged). `lpips_vgg` takes the tensors of
 `weights.lpips_from_jax_params`: `conv{i}.weight` (OIHW), `conv{i}.bias`
 and `lin{i}.weight` ([C], the learned non-negative channel weights).
+`convert_lpips_weights` makes `kdip_tpu`'s LPIPS tree from torchvision's
+VGG16 and the lpips package's weights.
 """
 
 from __future__ import annotations
@@ -146,6 +148,39 @@ def lpips_vgg(params: Mapping[str, torch.Tensor], a: torch.Tensor,
         total = total + torch.mean(torch.sum((na - nb) ** 2 * lin, dim=1),
                                    dim=(1, 2))
     return total
+
+
+def convert_lpips_weights(vgg_state_dict: Mapping,
+                          lpips_state_dict: Mapping) -> Dict:
+    """torchvision's VGG16 `features.{layer}.weight/bias` convs and the
+    lpips package's `lin{i}.model.1.weight` 1x1 convs -> `kdip_tpu`'s
+    LPIPS-VGG param tree ({"conv{i}": {"kernel" HWIO, "bias"}, "lin{i}":
+    {"kernel" [C]}}, numpy float32), as `kdip_tpu.metrics.
+    convert_lpips_weights` builds it (metrics.py:159-178). Saved as
+    `np.savez(path, params=np.array(tree, dtype=object))` it is the npz
+    that the CLIs' --lpips-weights read; `weights.lpips_from_jax_params`
+    turns it into `lpips_vgg`'s tensors."""
+    def host(t):
+        if torch.is_tensor(t):
+            t = t.detach().cpu()
+        return np.asarray(t, np.float32)
+
+    params = {}
+    conv_idx = layer = 0
+    for c in VGG16_CFG:
+        if c == "M":
+            layer += 1
+            continue
+        w = host(vgg_state_dict[f"features.{layer}.weight"])
+        params[f"conv{conv_idx}"] = {
+            "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "bias": host(vgg_state_dict[f"features.{layer}.bias"])}
+        conv_idx += 1
+        layer += 2  # conv + relu
+    for i in range(len(LPIPS_TAPS)):
+        w = host(lpips_state_dict[f"lin{i}.model.1.weight"])  # [1, C, 1, 1]
+        params[f"lin{i}"] = {"kernel": w[0, :, 0, 0].copy()}
+    return params
 
 
 # ---------------------------------------------------------------------------

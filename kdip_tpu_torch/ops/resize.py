@@ -6,10 +6,16 @@ on the host in numpy (`resize_matrix`, bit-equal to `kdip_tpu`'s) into dense
 [out, in] matrices; resizing an NCHW tensor is then Mh @ x @ Mw^T, H first.
 On the card these are float32 matmuls: they stay float32 only while
 `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's default).
+
+`jax_resize` follows `jax.image.resize` instead (bilinear or Keys bicubic,
+antialiased when downsampling, taps outside the image dropped), the
+resize of `kdip_tpu`'s FID/KID backbones; its matrices come from
+`jax_resize_matrix`, and it is applied the same way.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -119,3 +125,74 @@ def resize(x: torch.Tensor, scale_factor: float, kernel: Optional[str] = None,
     fn, _ = make_resizer(tuple(x.shape[-2:]), scale_factor, kernel,
                          antialiasing, device=x.device)
     return fn(x)
+
+
+# ---------------------------------------------------------------------------
+# jax.image.resize's semantics (jax/_src/image/scale.py compute_weight_mat)
+# ---------------------------------------------------------------------------
+
+def _triangle(x):
+    return np.maximum(np.float32(0), np.float32(1) - np.abs(x))
+
+
+def _keys_cubic(x):
+    """Keys' cubic with a = -0.5 (F.interpolate's bicubic uses -0.75), in
+    x's float32."""
+    c = np.float32
+    out = ((c(1.5) * x - c(2.5)) * x) * x + c(1)
+    out = np.where(x >= 1, ((c(-0.5) * x + c(2.5)) * x - c(4)) * x + c(2),
+                   out)
+    return np.where(x >= 2, c(0), out)
+
+
+_JAX_KERNELS = {"linear": _triangle, "bilinear": _triangle,
+                "cubic": _keys_cubic, "bicubic": _keys_cubic}
+
+
+def jax_resize_matrix(in_size: int, out_size: int, method: str,
+                      antialias: bool = True) -> np.ndarray:
+    """Dense [out_size, in_size] float32 matrix of `jax.image.resize` along
+    one axis (its `compute_weight_mat` with translation 0): half-pixel
+    centres; when downsampling with `antialias` (jax's default) the kernel
+    is widened by 1/scale; taps that fall outside the input are dropped
+    and the rest renormalised to sum to 1 (F.interpolate clamps the index
+    instead). Computed in float32, step for step as jax computes it with
+    x64 off: a sample's position near 512 carries float32's rounding, which
+    moves its weights by ~3e-5."""
+    f32 = np.float32
+    kernel = _JAX_KERNELS[method]
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = f32(max(inv_scale, 1.0) if antialias else 1.0)
+    sample = ((np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale)
+              - f32(0.0) - f32(0.5))
+    w = kernel(np.abs(sample[:, None] - np.arange(in_size, dtype=f32)[None])
+               / kernel_scale).astype(f32)
+    total = w.sum(axis=1, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[:, None], w, f32(0)).astype(f32)
+
+
+@functools.lru_cache(maxsize=16)
+def _jax_resize_matrices(in_hw: Tuple[int, int], size: Tuple[int, int],
+                         method: str, antialias: bool, device: torch.device):
+    """(Mh, Mw) of `jax_resize` on `device`, built once per shape, method
+    and device; an axis whose size does not change keeps it (the
+    identity), as in jax."""
+    def matrix(n, o):
+        m = (np.eye(n, dtype=np.float32) if n == o
+             else jax_resize_matrix(n, o, method, antialias))
+        return torch.from_numpy(m).to(device)
+    return tuple(matrix(n, o) for n, o in zip(in_hw, size))
+
+
+def jax_resize(x: torch.Tensor, size: Tuple[int, int], method: str,
+               antialias: bool = True) -> torch.Tensor:
+    """`jax.image.resize` of an NCHW batch's H and W to `size`, method
+    "bilinear" (or "linear") or "bicubic" (or "cubic"): Mh @ x @ Mw^T in
+    float32 on x's device, as `kdip_tpu` resizes the Inception, pixels and
+    CLIP inputs."""
+    Mh, Mw = _jax_resize_matrices(tuple(x.shape[-2:]), tuple(size), method,
+                                  antialias, x.device)
+    return apply_resize(x.to(torch.float32), Mh, Mw)

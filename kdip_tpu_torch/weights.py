@@ -12,8 +12,9 @@ guided-diffusion state dict (NCHW/OIHW), which loads into
 guided-diffusion classifier's and a k-diffusion UNet's state dicts.
 `lpips_from_jax_params` turns `kdip_tpu`'s LPIPS-VGG
 weights (the npz that its `--lpips-weights` reads) into
-`metrics.lpips_vgg`'s tensors. This module needs no JAX: it reads numpy
-arrays.
+`metrics.lpips_vgg`'s tensors, and `inception_from_jax_params` the flax
+InceptionV3 variables into `models.inception`'s state dict. This module
+needs no JAX: it reads numpy arrays.
 """
 
 from __future__ import annotations
@@ -243,6 +244,34 @@ def lpips_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unmapped LPIPS param {name!r}")
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in sorted(sd.items())}
+
+
+def inception_from_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """`kdip_tpu`'s InceptionV3 variables ({"params", "batch_stats"}) ->
+    `models.inception.InceptionV3Features`' state dict, the inverse of
+    `kdip_tpu.models.inception.convert_inception_state_dict`
+    (inception.py:178-224): `conv.kernel` HWIO -> `conv.weight` OIHW,
+    `bn.scale` / `bn.bias` -> `bn.weight` / `bn.bias`, `bn.mean` /
+    `bn.var` -> `bn.running_mean` / `bn.running_var`. BatchNorm's
+    `num_batches_tracked`, which no forward reads, is left out: a strict
+    load of a plain dict fills it in."""
+    names = {("params", "conv", "kernel"): "conv.weight",
+             ("params", "bn", "scale"): "bn.weight",
+             ("params", "bn", "bias"): "bn.bias",
+             ("batch_stats", "bn", "mean"): "bn.running_mean",
+             ("batch_stats", "bn", "var"): "bn.running_var"}
+    sd = {}
+    for col in ("params", "batch_stats"):
+        for path, w in _flatten(variables[col]):
+            leaf = names.get((col,) + path[-2:])
+            if leaf is None:
+                raise KeyError(f"unmapped Inception {col} leaf "
+                               f"{'/'.join(path)!r}")
+            if leaf == "conv.weight":
+                w = w.transpose(3, 2, 0, 1)
+            sd[".".join(path[:-2] + (leaf,))] = torch.from_numpy(
+                np.ascontiguousarray(w))
+    return dict(sorted(sd.items()))
 
 
 def randomize_(model: nn.Module, seed: int, std: float = 0.02) -> nn.Module:

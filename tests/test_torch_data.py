@@ -104,13 +104,17 @@ def _encode_png(img: np.ndarray, filters) -> bytes:
             pred = np.where((pa <= pb) & (pa <= pc), left,
                             np.where(pb <= pc, prev, upleft))
         out += bytes([f]) + ((cur - pred) % 256).astype(np.uint8).tobytes()
+    return _encode_raw_png(bytes(out), w, h)
 
+
+def _encode_raw_png(raw: bytes, w: int, h: int) -> bytes:
+    """An 8-bit RGB PNG of w x h whose filtered rows are `raw`."""
     def chunk(kind, payload):
         return (struct.pack(">I", len(payload)) + kind + payload
                 + struct.pack(">I", zlib.crc32(kind + payload)))
     return (tdata.PNG_SIGNATURE
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(bytes(out)))
+            + chunk(b"IDAT", zlib.compress(raw))
             + chunk(b"IEND", b""))
 
 
@@ -125,6 +129,30 @@ def test_all_five_row_filters(tmp_path):
         np.testing.assert_array_equal(
             np.asarray(Image.open(tmp_path / name)), img)
     _assert_same_arrays(tmp_path)
+
+
+@pytest.mark.parametrize("filters", [(4, 3, 2, 1, 0),
+                                     (2, 2, 1, 1, 0, 3, 3, 4, 4, 1)])
+def test_row_filters_in_other_orders(tmp_path, filters):
+    """read_png decodes the None and Sub rows all at once and then the
+    others in order, each on the row above: Paeth, Average or Up on the
+    first row (the row above taken as 0) and runs of one filter decode to
+    the image, as PIL decodes them; a filter type past 4 is refused."""
+    noisy, smooth = _images(seed=2)
+    for name, img in (("n.png", noisy[..., :3]), ("s.png", smooth[..., :3])):
+        (tmp_path / name).write_bytes(_encode_png(img, filters))
+        assert _filters(tmp_path / name) == set(filters)
+        np.testing.assert_array_equal(tdata.read_png(tmp_path / name), img)
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(tmp_path / name)), img)
+    bad = bytearray(zlib.decompress(b"".join(
+        p for k, p in tdata._chunks((tmp_path / "s.png").read_bytes())
+        if k == b"IDAT")))
+    bad[7 * (1 + 48 * 3)] = 5
+    (tmp_path / "bad.png").write_bytes(
+        _encode_raw_png(bytes(bad), 48, 40))
+    with pytest.raises(ValueError, match="row 7 has filter type 5"):
+        tdata.read_png(tmp_path / "bad.png")
 
 
 def test_other_files_go_through_pil(tmp_path):

@@ -120,7 +120,9 @@ def test_port_sources_import_no_yaml_jax_or_kdip_tpu():
     assert {os.path.join(REPO, "kdip_tpu_torch", *p) for p in (
         ("models", "kdiff.py"), ("script_util.py",), ("train.py",),
         ("utils.py",), ("tfevents.py",), ("cli", "train_openai.py"),
-        ("cli", "analytic_variance.py"))} <= set(sources)
+        ("cli", "analytic_variance.py"), ("evaluation.py",),
+        ("profiling.py",), ("models", "inception.py"),
+        ("cli", "evaluate.py"))} <= set(sources)
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
