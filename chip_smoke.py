@@ -23,13 +23,14 @@ each printing one JSON line:
 3. slice, DWT-Var: ADMUNetV2 (bf16 torso, params pre-cast), p=0.5
    inpainting (configs/inpainting_config.yaml), Type-I guidance with the
    learned DWT covariance, mle threshold 1.0 (the CLI's --v2 default),
-   50-step Heun with churn, 4 samples against one measurement; the DWT
-   launch counts are reset just before and read just after, and the fused
-   matvec's must be the CG iterations plus one per CG solve;
-3a. slice_dwt_var_batched: the same seeds with per_sample_map=False (the
-   4 samples as one batch through the UNet, the vjp and one CG solve per
-   guided call), its ms/NFE beside the per-sample twin's; the fused
-   matvec's launches are again the CG iterations plus one per solve;
+   50-step Heun with churn, N_SAMPLES (2) samples against one
+   measurement; the DWT launch counts are reset just before and read just
+   after, and the fused matvec's must be the CG iterations plus one per
+   CG solve;
+3a. slice_dwt_var_batched: the same seeds with per_sample_map=False and
+   BATCHED_N (4) samples, as one batch through the UNet, the vjp and one
+   CG solve per guided call; its ms/NFE beside the per-sample twin's; the
+   fused matvec's launches are again the CG iterations plus one per solve;
 4. one guided NFE below the threshold, with the kernel DWT and with the
    plain DWT, compared; the kernel run is traced with torch.profiler for
    the device's busy share and its top kernels;
@@ -75,9 +76,9 @@ each printing one JSON line:
    beside the cold slice's), motion deblur with Convert (the PSF loaded
    from kdip_tpu_torch/data, as the card has no PIL), 4x super-resolution
    with Convert (y is [1, 3, 64, 64]), gaussian deblur with tmpd (a CG
-   solve at every NFE; n=1), and gaussian deblur with DWT-Var (the fused
-   matvec's no-mask mode, its launches the CG iterations plus one per
-   solve);
+   solve at every NFE; n=1), and gaussian deblur with
+   DWT-Var (the fused matvec's no-mask mode, its launches the CG
+   iterations plus one per solve);
 11. one tmpd and one DWT-Var gaussian-deblur guided NFE, each traced: its
    device time by kind (the FFTs are cuFFT's), the idle share and the CG
    iterations; and tmpd's variance at a few sigmas: its range and the
@@ -195,17 +196,48 @@ each printing one JSON line:
    2100 seeded 256 px PNGs made on the card ("fake" a noised copy of
    "real") with a full-width InceptionV3 of seeded weights in a
    pt_inception `.pth`, TF32 off: the inception backbone (B=64), pixels on
-   256 of each, --paired with LPIPS on 64 pairs, and the refusals of --backbone clip (no transformers) and
-   --dp; the card's FID/KID against float64 on the CPU from the same
+   256 of each, --paired with LPIPS on 64 pairs, and the refusals of
+   --backbone clip (no transformers) and --dp without a process group; the
+   card's FID/KID against float64 on the CPU from the same
    features, card against CPU features of 16 images; wall seconds,
    images/s end to end and of the forward alone, the data fetch's share,
    the busy share of one traced batch, ms of sqrtm_eig at D=2048, peak
    memory; no kernel launch;
+20a. scale_out: the port's data-parallel paths
+   (`kdip_tpu_torch.parallel`) at full width, the ranks processes of this
+   script (`chip_smoke.py --scale-out PART PLAN`, under RANK, WORLD_SIZE,
+   MASTER_ADDR and MASTER_PORT, the kernels already built), deterministic
+   kernels, guided runs at Heun-SCALE_OUT_STEPS, every part side by side.
+   Part (a), one rank under NCCL (two processes, sampling and training):
+   the guided CLI on configs/test_ffhq_dwt.json --v2 (bf16, a batch
+   of 2 images) batched without a group, then with --dp, within
+   SCALE_OUT_TOL and the same CG iterations, the fused matvec's launches
+   the CG iterations plus one per solve; two TrainLoop steps on
+   test_ffhq.json's bf16 Winograd torso (dropout 0.1 live) without and
+   with mesh=, the same params and EMAs (Adam's bound of
+   tests/test_torch_train_loop.py), every microbatch's Winograd launches
+   exact; one train_openai step in the group; FSDP2 (`shard_params_fsdp`)
+   on the full-width torso against a replicated copy within FSDP_TOL;
+   evaluate --dp against evaluate on two folders of SCALE_OUT_EVAL images,
+   FID and KID equal; the NCCL collectives' times. Part (b), beside part
+   (a), two ranks on the one card under gloo (CUDA tensors reduced and
+   gathered through the host): the guided CLI with --dp, one image a
+   rank, both ranks the same CG iterations and the same CG exit residual,
+   within SCALE_OUT_RESID_REL of part (a)'s, each its launches exact, the
+   gathered samples within an RMS of SCALE_OUT_RANKS_RMS of part (a)'s
+   --dp run of the pair (both float32, on the config at sigma_max
+   SCALE_OUT_SIGMA_MAX); the gloo collectives' times. Each part's seconds
+   and each rank's peak memory;
 21. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   3a, 4a, 7, 10, 12, 16-16g and 18-20), its error, its time against its
+   3a, 4a, 7, 10, 12, 16-16g, 18-20 and 20a), its error, its time against its
    plain version's, its bound and, for the Winograd kernels, cuDNN's
    direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
+
+Depth cuts to pay for 20a: the per-sample slices of phases 3, 5
+and 7 run N_SAMPLES = 2 (their batched twins BATCHED_N = 4), autoI
+AUTOI_N = 1 (PERF.md §4). The tmpd slice stays at Heun-50: at Heun-25 its
+samples are not finite with random weights.
 
 Each slice's line has its ms/NFE, samples/s, cg_max_residual, CG
 iterations, CG warnings (counted, not printed) and DWT launches; the
@@ -236,7 +268,13 @@ BF16_TENSOR_FLOP_PER_S = 989e12
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE = 256          # FFHQ-256
 STEPS = 50          # SamplerConfig's default: Heun-50
-N_SAMPLES = 4
+# Depth cut to pay for the scale_out phase (with AUTOI_N's): the
+# per-sample slices slice_dwt_var, slice_convert and
+# slice_convert_winograd run 2 samples (at 4 they took about 130 s
+# together in a whole run on an H100 80GB HBM3 at 700 W); their batched
+# twins keep 4
+BATCHED_N = 4
+N_SAMPLES = 2
 CLI_DWT_IMAGES = 2              # cli_dwt_var's test images
 CLI_WINO_IMAGES = 1             # cli_convert_winograd's
 # phases 18-20, unconditional sampling: n, the Karras steps, the CLI runs
@@ -322,10 +360,11 @@ TMPD_N = 1
 # Depth cut to keep the script inside its 1200 s limit with training's two
 # phases (H100 80GB HBM3, 700 W): phase 10's other five slices run 1
 # sample (at 4 the phase took 298 of 1026 s; at 2, 191 of 1132 s),
-# Type-II DWT-Var and DCT-Var 2 (82 s of 1132 s at 4), autoI 2 (62 s)
+# Type-II DWT-Var and DCT-Var 2 (82 s of 1132 s at 4), autoI 2 (62 s);
+# autoI at 1, with N_SAMPLES' cut, pays for the scale_out phase
 BLUR_SR_N = 1
 TYPE_II_DCT_N = 2
-AUTOI_N = 2
+AUTOI_N = 1
 BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
 TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
 STSL_NFE_SIGMA = 0.5            # phase 14's stsl NFE
@@ -377,6 +416,42 @@ INCEPTION_FC = (1008, 2048)     # pt_inception's fc.weight (manifest)
 # ~1e-7 of its largest, which float32's eigh resolves only roughly)
 FID_GAP_TRACE = 1e-2
 KID_GAP_KERNEL = 1e-6
+# the scale_out phase: its guided runs at Heun-SCALE_OUT_STEPS
+# (they hold --dp against the one-process runs, at any depth)
+SCALE_OUT_STEPS = 10
+SCALE_OUT_IMAGES = 2            # the guided CLI's: one batch of 2
+SCALE_OUT_EVAL = 128            # evaluate --dp: images a folder
+SCALE_OUT_LOOP_STEPS = 2        # TrainLoop steps, with and without mesh=
+# part (a): --dp at one rank against the batched CLI, bf16, deterministic
+# kernels (the same sums but the all_reduce of one rank's partials)
+SCALE_OUT_TOL = 1e-5
+# part (b): two ranks, a block of 1 each, against part (a)'s batch of 2.
+# The UNet's convolutions round otherwise at another batch size (4e-6 of
+# an eps of ~1 at 64 px on the CPU), and the random-weight DWT-Var sampler
+# amplifies such roundings: a 1e-6 relative perturbation of eps moved the
+# samples by an RMS of 2.4e-4 (max 3e-3) over 11 NFEs (64 px, CPU). At a
+# high sigma, hat_x0 = x0_mean + sigma^2 * score cancels terms of size
+# sigma^2 |mat| and makes whole-pixel differences of them (2.0, the full
+# range, from sigma_max 80 in a CPU rehearsal). So part (b) and its
+# reference in part (a) run a copy of the config whose sigma_max is
+# SCALE_OUT_SIGMA_MAX (as tests/test_torch_sampling.py does). Read on an
+# H100 with deterministic kernels, the same in every run: the RMS over
+# the images 7.8e-5 (max 1.8e-3). A CG whose inner products are not
+# summed across the ranks converges each rank's block to the same
+# solution within the CG's tolerance, and read an RMS of 7.9e-5: no RMS
+# bound tells it apart, but its exit residual differs between the ranks
+# and from part (a)'s joint one by 7-11%, where the sound run's two ranks
+# agree bit for bit and within 4.7e-5 of part (a)'s. So part (b) holds
+# the ranks' residuals equal and within SCALE_OUT_RESID_REL of part (a)'s,
+# and the RMS within SCALE_OUT_RANKS_RMS, 13x the sound reading, against
+# a block in the wrong place. (A rank-local iso mean read bit-equal to the
+# sound run: this path never takes it; tests/test_torch_parallel_ranks.py
+# holds it on the CPU.)
+SCALE_OUT_SIGMA_MAX = 2.0
+SCALE_OUT_RANKS_RMS = 1e-3
+SCALE_OUT_RESID_REL = 2e-3
+FSDP_TOL = 1e-5                 # FSDP2 against replicated: loss, gradients
+SCALE_OUT_TIMEOUT = 600
 DWT_TOL = 1e-6      # kernel vs plain: the same float32 roundings (phase 2)
 DWT_EQUAL = 0.999   # least bit-equal share of the fused matvec (phase 2)
 CHAIN_LEVELS = (4, 5, 6, 7, 8)  # phase 2: chained passes, up to 1x1 at 256
@@ -692,12 +767,14 @@ def config_path(name: str) -> str:
     return os.path.join(ROOT, "configs", name)
 
 
-def guided_nfes_below(thres: float) -> int:
-    """Guided NFEs of one Heun-50 trajectory (STEPS, churn) at a sigma
-    below `thres`, from the schedule as samplers.sample_heun walks it: a
-    call at sigma_hat each step, and at sigma_next where that is not 0."""
+def guided_nfes_below(thres: float, steps: int = STEPS,
+                      sigma_max: float = 80.0) -> int:
+    """Guided NFEs of one Heun trajectory of `steps` steps (churn) from
+    `sigma_max` at a sigma below `thres`, from the schedule as
+    samplers.sample_heun walks it: a call at sigma_hat each step, and at
+    sigma_next where that is not 0."""
     from kdip_tpu_torch import sampling_api, samplers, schedules
-    c = sampling_api.SamplerConfig(steps=STEPS)
+    c = sampling_api.SamplerConfig(steps=steps, sigma_max=sigma_max)
     sig = schedules.get_sigmas_karras(c.steps, c.sigma_min, c.sigma_max,
                                       c.rho).numpy()
     gammas = samplers._churn_gammas(sig, c.s_churn, c.s_tmin, c.s_tmax)
@@ -1574,11 +1651,12 @@ def run_nonlinear_slices(dev):
 
 
 def run_batched_twin(name, twin, dev, v2: bool, gcfg, seed: int):
-    """The `twin` slice's configuration and seeds with per_sample_map=False:
-    the n samples go through the UNet, the vjp and the CG as one batch of
-    n, one solve per guided call. Emits the record, with the per-sample
-    twin's numbers and the batched/per-sample ms/NFE ratio beside it."""
-    rec, _ = run_slice(name, dev, v2, gcfg, seed=seed, n=twin["n"],
+    """The `twin` slice's configuration and seeds with per_sample_map=False
+    and BATCHED_N samples: they go through the UNet, the vjp and the CG as
+    one batch, one solve per guided call. Emits the record, with the
+    per-sample twin's numbers (N_SAMPLES samples) and the batched /
+    per-sample ms/NFE ratio beside it."""
+    rec, _ = run_slice(name, dev, v2, gcfg, seed=seed, n=BATCHED_N,
                        per_sample_map=False)
     rec["per_sample"] = {k: twin[k] for k in (
         "ms_per_nfe", "samples_per_s", "cg_total_iters", "cg_max_residual",
@@ -1660,12 +1738,15 @@ def cli_inputs(tmp: str, name: str, config_name, v2: bool, seed: int,
 class CliProbe:
     """Records what one in-process CLI run does, with the module functions
     it calls wrapped for the run: every sampler call's CG info and output
-    range (sampling_api.build_posterior_sampler), LPIPS's device time
-    (metrics.lpips_vgg, synchronised), the run's stdout, peak memory and
-    the kernels' launch counts, reset just before `main`."""
+    range (sampling_api.build_posterior_sampler; under --dp, each call on
+    this rank's block), each scored image's sample as the CLI scores it
+    (metrics.compute_metrics: on rank 0, the gathered samples), LPIPS's
+    device time (metrics.lpips_vgg, synchronised), the run's stdout, peak
+    memory and the kernels' launch counts, reset just before `main`."""
 
     def __init__(self):
         self.calls, self.lpips_s, self.stdout = [], [], ""
+        self.samples = []
 
     def run(self, argv):
         import contextlib
@@ -1677,6 +1758,7 @@ class CliProbe:
         from kdip_tpu_torch.ops import dwt as D
         from kdip_tpu_torch.ops import winograd as Wg
         build, lpips = sampling_api.build_posterior_sampler, metrics.lpips_vgg
+        score = metrics.compute_metrics
 
         def built(*a, **kw):
             sample = build(*a, **kw)
@@ -1691,6 +1773,10 @@ class CliProbe:
                 return out, info
             return recorded
 
+        def scored(hat_x0, *a, **kw):
+            self.samples.append(hat_x0.detach().float().cpu())
+            return score(hat_x0, *a, **kw)
+
         def timed_lpips(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1700,6 +1786,7 @@ class CliProbe:
             return out
         sampling_api.build_posterior_sampler = built
         metrics.lpips_vgg = timed_lpips
+        metrics.compute_metrics = scored
         buf = io.StringIO()
         try:
             torch.cuda.synchronize()
@@ -1712,6 +1799,7 @@ class CliProbe:
         finally:
             sampling_api.build_posterior_sampler = build
             metrics.lpips_vgg = lpips
+            metrics.compute_metrics = score
             self.stdout = buf.getvalue()
         self.dwt_launches = dict(D.launch_counts)
         self.winograd_launches = dict(Wg.launch_counts)
@@ -3203,7 +3291,8 @@ def phase_evaluate_fid_inception(tmp, dev, lpips_npz):
     off: the inception backbone at --batch-size EVAL_BATCH, the pixels
     backbone on EVAL_PIXELS images of each folder, --paired with LPIPS on
     EVAL_PAIRED pairs, then --backbone clip with transformers hidden
-    (refused, naming it) and --dp (refused, naming ROADMAP entry 9).
+    (refused, naming it) and --dp without a process group (refused,
+    naming torchrun; the scale_out phase runs it under one).
     Checks each run's n_real = n_fake, finite metrics, the inception
     fid >= 0; the card's FID and KID against float64 on the CPU
     from the same card features within FID_GAP_TRACE of the covariances'
@@ -3327,7 +3416,7 @@ def phase_evaluate_fid_inception(tmp, dev, lpips_npz):
     clip_msg = refused([real, fake, "--backbone", "clip", "--weights", root],
                        hide_transformers=True)
     dp_msg = refused([real, fake, "--dp"])
-    if "transformers" not in clip_msg or "entry 9" not in dp_msg:
+    if "transformers" not in clip_msg or "torchrun" not in dp_msg:
         raise AssertionError(f"refusals: {clip_msg!r} / {dp_msg!r}")
     launches = dict(D.launch_counts), dict(Wg.launch_counts)
     if any(v for c in launches for v in c.values()):
@@ -3621,6 +3710,618 @@ def matvec_row(dev, launches):
             "launch_config": D.launch_config(3, SIZE, SIZE)._asdict()}
 
 
+# ---------------------------------------------------------------------------
+# scale_out: the --dp paths over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+def _cuda(dev) -> bool:
+    return dev.type == "cuda"
+
+
+def _sync(dev) -> None:
+    import torch
+    if _cuda(dev):
+        torch.cuda.synchronize()
+
+
+def _peak_gib(dev):
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if _cuda(dev)
+            else "not measured")
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if _cuda(dev):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def adam_close(got: dict, want: dict) -> dict:
+    """Two state dicts after the same Adam steps: the largest
+    |a - b| - 1e-6 |b| over the elements and the share of elements past
+    1e-4 of the lr (1e-4), and whether they hold tests/test_torch_train_
+    loop.py's bound (every element within 1 lr, at most 0.1% past 1e-4 lr:
+    Adam divides each gradient by its own RMS, so a gradient near 0 that
+    rounds otherwise steps otherwise)."""
+    lr, worst, beyond, total = 1e-4, 0.0, 0, 0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        d = (got[k].float() - w.float()).abs() - 1e-6 * w.float().abs()
+        worst = max(worst, float(d.max()))
+        beyond += int((d > 1e-4 * lr).sum())
+        total += w.numel()
+    return {"max_excess": worst, "share_past_1e-4_lr": beyond / total,
+            "ok": worst <= lr and beyond <= 1e-3 * total}
+
+
+def scale_out_cli_argv(plan, dev, logdir, ranks: bool = False):
+    """The guided CLI on the phase's DWT-Var checkpoint (--v2, TF32 off),
+    one batch of SCALE_OUT_IMAGES, Heun-plan["steps"]: on
+    configs/test_ffhq_dwt.json's copy, bf16; with `ranks`, part (b)'s
+    pair, on the copy at sigma_max SCALE_OUT_SIGMA_MAX, float32."""
+    c = plan["cli"]
+    return ["--checkpoint", c["ckpt"], "--config",
+            c["config_ranks" if ranks else "config"],
+            "--operator-config", c["op"], "--logdir", logdir, "--steps",
+            str(plan["steps"]), "-n", "1",
+            "--batch-size", str(c["images"]), "--v2", "--dtype",
+            "float32" if ranks else "bfloat16", "--seed", "70",
+            "--device", dev.type]
+
+
+def scale_out_cli_record(probe, steps: int, sigma_max: float = 80.0
+                         ) -> dict:
+    """One CLI run's sampler calls on this rank, CG iterations, launches
+    and peak memory; raises unless the fused matvec launched exactly once
+    a CG iteration and once a solve (one solve a guided call below the
+    threshold, for the rank's block) and no other DWT entry point."""
+    iters = sum(c["cg_total_iters"] for c in probe.calls)
+    solves = len(probe.calls) * guided_nfes_below(1.0, steps, sigma_max)
+    want = {"haar_dwt2": 0, "haar_idwt2": 0, "haar_ot_matvec": iters + solves}
+    rec = {"calls": probe.calls, "cg_total_iters": iters, "cg_solves": solves,
+           "dwt_launches": probe.dwt_launches,
+           "winograd_launches": probe.winograd_launches,
+           "peak_mem_gib": probe.peak_mem_gib}
+    bad = [c for c in probe.calls
+           if not c["finite"] or c["max_abs_out"] > 1 + 1e-5]
+    if probe.dwt_launches != want or bad or sum(
+            probe.winograd_launches.values()):
+        raise AssertionError(f"scale_out CLI: launches {probe.dwt_launches}"
+                             f", expected {want}; calls {probe.calls}")
+    return rec
+
+
+def scale_out_collectives(dev, numel: int, reps: int) -> dict:
+    """ms of the group's all_reduce of `numel` float32 (a gradient's size)
+    and of one float (a CG inner product), and of the all_gather of one
+    [1, 3, SIZE, SIZE] block, on dev (under gloo on the card, through the
+    host): CUDA events on the card, the host clock on the CPU."""
+    import torch
+    from kdip_tpu_torch.parallel import dist as pdist
+    from kdip_tpu_torch.parallel import sharding
+    big = torch.ones(numel, device=dev)
+    one = torch.ones(1, device=dev)
+    block = torch.ones((1, 3, SIZE, SIZE), device=dev)
+    world = torch.distributed.group.WORLD
+    fns = {"all_reduce_grad_ms": lambda: pdist.all_reduce(big, world),
+           "all_reduce_scalar_ms": lambda: pdist.all_reduce(one, world),
+           "all_gather_block_ms": lambda: sharding.all_gather_blocks(
+               block, world)}
+    out = {}
+    for name, fn in fns.items():
+        n = 3 if name == "all_reduce_grad_ms" else reps
+        if _cuda(dev):
+            out[name] = cuda_time_ms(fn, reps=n, warmup=1)
+        else:
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            out[name] = 1e3 * (time.perf_counter() - t0) / n
+    out["grad_numel"] = numel
+    out["backend"] = str(torch.distributed.get_backend())
+    return out
+
+
+def scale_out_one_rank(plan, dev) -> dict:
+    """Part (a)'s sampling and scoring, one rank under the launcher's
+    environment (WORLD_SIZE 1; NCCL on the card): the guided CLI batched
+    without a group, then with --dp (which joins the group): samples
+    within SCALE_OUT_TOL, the same CG iterations, launches exact; the same
+    --dp run on the config at sigma_max SCALE_OUT_SIGMA_MAX, part (b)'s
+    reference; evaluate --dp against evaluate on two folders, FID / KID
+    equal; then the collectives' times, the all_reduce at a gradient's
+    size."""
+    import torch
+    from kdip_tpu_torch.cli import evaluate
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import winograd as Wg
+    out, secs, peak = plan["out"], {}, {}
+    res = {"seconds": secs, "peak_mem_gib": peak}
+
+    t0 = time.perf_counter()
+    one, dp = CliProbe(), CliProbe()
+    one.run(scale_out_cli_argv(plan, dev, os.path.join(out, "cli_one")))
+    if torch.distributed.is_initialized():
+        raise AssertionError("the batched CLI joined a process group")
+    dp.run(scale_out_cli_argv(plan, dev, os.path.join(out, "cli_dp"))
+           + ["--dp"])
+    if (not torch.distributed.is_initialized()
+            or torch.distributed.get_world_size() != 1):
+        raise AssertionError("--dp did not join the launcher's group")
+    rec_one = scale_out_cli_record(one, plan["steps"])
+    rec_dp = scale_out_cli_record(dp, plan["steps"])
+    n = plan["cli"]["images"]
+    if len(one.samples) != n or len(dp.samples) != n:
+        raise AssertionError(f"{len(one.samples)} / {len(dp.samples)} "
+                             f"scored samples, expected {n}")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(dp.samples, one.samples))
+    # part (b)'s reference: --dp on the config whose sigma_max is
+    # SCALE_OUT_SIGMA_MAX
+    ref = CliProbe()
+    ref.run(scale_out_cli_argv(plan, dev, os.path.join(out, "cli_ref"),
+                               True) + ["--dp"])
+    rec_ref = scale_out_cli_record(ref, plan["steps"], SCALE_OUT_SIGMA_MAX)
+    torch.save(ref.samples, os.path.join(out, "a_samples.pt"))
+    res["cli"] = {"one_process": rec_one, "dp": rec_dp, "ranks_ref": rec_ref,
+                  "dp_vs_batched_max_abs": err, "bound": SCALE_OUT_TOL,
+                  "backend": str(torch.distributed.get_backend())}
+    if err > SCALE_OUT_TOL or rec_dp["cg_total_iters"] != \
+            rec_one["cg_total_iters"]:
+        raise AssertionError(f"--dp against the batched CLI: {err} "
+                             f"(> {SCALE_OUT_TOL}) or CG iterations "
+                             f"{rec_dp['cg_total_iters']} / "
+                             f"{rec_one['cg_total_iters']}")
+    peak["cli"] = max(rec_one["peak_mem_gib"], rec_dp["peak_mem_gib"])
+    secs["cli"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ev = plan["eval"]
+    argv = [ev["real"], ev["fake"], "--backbone", "inception", "--weights",
+            ev["weights"], "--size", str(ev["size"]), "--batch-size",
+            str(ev["batch"]), "--device", dev.type]
+    D.reset_launch_counts()
+    Wg.reset_launch_counts()
+    _reset_peak(dev)
+    e_one = evaluate.main(argv)
+    e_dp = evaluate.main(argv + ["--dp"])
+    res["evaluate"] = {"one_process": e_one, "dp": e_dp,
+                       "peak_mem_gib": _peak_gib(dev)}
+    if (e_dp != e_one or e_dp["n_real"] != ev["n"] or e_dp["n_fake"] != ev["n"]
+            or not (np.isfinite(e_dp["fid"]) and np.isfinite(e_dp["kid"]))
+            or sum(D.launch_counts.values()) + sum(Wg.launch_counts.values())):
+        raise AssertionError(f"evaluate --dp: {res['evaluate']}")
+    peak["evaluate"] = res["evaluate"]["peak_mem_gib"]
+    secs["evaluate"] = time.perf_counter() - t0
+
+    res["collectives"] = scale_out_collectives(dev, plan["train"]["params"],
+                                               50)
+    dwt = {k: rec_one["dwt_launches"][k] + rec_dp["dwt_launches"][k]
+           + rec_ref["dwt_launches"][k] for k in rec_one["dwt_launches"]}
+    res["launches"] = {"dwt": dwt, "winograd": rec_one["winograd_launches"]}
+    return res
+
+
+def scale_out_train_rank(plan, dev) -> dict:
+    """Part (a)'s training, one rank under the launcher's environment
+    (WORLD_SIZE 1; NCCL on the card), beside the sampling rank: two
+    TrainLoop steps without and with mesh= on test_ffhq.json's bf16
+    Winograd torso (dropout 0.1 live), params and EMAs as adam_close holds
+    them, every microbatch's Winograd launches as
+    winograd_per_microbatch's, rank 0's checkpoints; one train_openai step
+    in the group (the gradients all-reduced before Adam), its DWT launches
+    exact and rank 0's checkpoints; FSDP2 (shard_params_fsdp) on the
+    full-width torso against a replicated copy, loss and gradients."""
+    import copy
+
+    import torch
+    from kdip_tpu_torch import config, logger, resample, weights
+    from kdip_tpu_torch.ops import winograd as Wg
+    from kdip_tpu_torch.parallel import dist as pdist
+    from kdip_tpu_torch.parallel import sharding
+    from kdip_tpu_torch.train_loop import TrainLoop
+    out, secs, peak = plan["out"], {}, {}
+    res = {"seconds": secs, "peak_mem_gib": peak}
+    pdist.setup_dist(device=dev.type)
+
+    t0 = time.perf_counter()
+    lp = plan["loop"]
+    cfg = config.load_config(lp["config"])
+    size = cfg["model"]["input_size"][0]
+    g = torch.Generator(dev).manual_seed(75)
+    batches = [torch.rand((lp["B"], 3, size, size), generator=g, device=dev)
+               * 2 - 1 for _ in range(lp["steps"])]
+    loops, init = {}, None
+    for name, mesh in (("one_process", None), ("mesh", sharding.make_mesh())):
+        model, tables = config.make_openai_model(cfg["model"], winograd=True,
+                                                 device=dev)
+        if init is None:  # seeded random masters, drawn once
+            init = weights.randomize_(model, 74).state_dict()
+            init = {k: v.clone() for k, v in init.items()}
+        else:
+            model.load_state_dict(init)
+        _reset_peak(dev)
+        loop = TrainLoop(
+            model=model, tables=tables, data=iter(batches),
+            batch_size=lp["B"], microbatch=lp["MB"], lr=1e-4,
+            ema_rate=LOOP_EMA, log_interval=1, save_interval=lp["steps"],
+            logdir=os.path.join(out, f"loop_{name}"),
+            schedule_sampler=resample.create_named_schedule_sampler(
+                "loss-second-moment", tables.num_timesteps),
+            loss_type="rescaled_mse", resume=False, seed=74,
+            measure_gns=True, compute_dtype=torch.bfloat16, mesh=mesh)
+        fwd, bwd = winograd_per_microbatch(loop.compute, True)
+        Wg.reset_launch_counts()
+        _sync(dev)
+        t = time.perf_counter()
+        with logger.scoped_configure(dir=os.path.join(out, f"log_{name}"),
+                                     format_strs=["json"]):
+            if mesh is None:  # the reference: its steps, no checkpoint
+                for batch in batches:
+                    loop.run_step(batch)
+            else:  # rank 0 writes the checkpoints at the last step
+                loop.run_loop(max_steps=lp["steps"])
+        _sync(dev)
+        micro_n = lp["steps"] * (lp["B"] // lp["MB"])
+        want = {k: (fwd[k] + bwd[k]) * micro_n for k in fwd}
+        launches = dict(Wg.launch_counts)
+        if launches != want or loop.step != lp["steps"]:
+            raise AssertionError(f"TrainLoop {name}: Winograd launches "
+                                 f"{launches}, expected {want}")
+        loops[name] = {
+            "s": time.perf_counter() - t, "winograd_launches": launches,
+            "peak_mem_gib": _peak_gib(dev),
+            "state": [{k: v.detach().cpu() for k, v in m.state_dict().items()}
+                      for m in [loop.model] + loop.ema_models],
+            "files": sorted(os.listdir(loop.logdir)) if mesh is not None
+            else []}
+        del loop, model
+        if _cuda(dev):
+            torch.cuda.empty_cache()
+    del init
+    close = [adam_close(a, b) for a, b in zip(loops["mesh"].pop("state"),
+                                              loops["one_process"].pop(
+                                                  "state"))]
+    res["train_loop"] = dict(loops, close=close)
+    n = lp["steps"]
+    saved = sorted(f"{k}_{n}.pt" for k in ["model", "opt"] + [
+        f"ema_{r}" for r in LOOP_EMA.split(",")])
+    if not all(c["ok"] for c in close) or loops["mesh"]["files"] != saved:
+        raise AssertionError(f"TrainLoop with mesh= against one process: "
+                             f"{res['train_loop']}")
+    peak["train_loop"] = max(v["peak_mem_gib"] for v in loops.values()) \
+        if _cuda(dev) else "not measured"
+    secs["train_loop"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tr = plan["train"]
+    probe = TrainProbe()
+    probe.run(["--config", tr["config"], "--checkpoint", tr["ckpt"],
+               "--batch-size", str(tr["B"]), "--max-steps", "1",
+               "--logdir", tr["logdir"], "--seed", "76", "--num-workers",
+               "2", "--device", dev.type])
+    step = probe.steps[0] if probe.steps else {}
+    want = {"haar_dwt2": 2 * tr["B"], "haar_idwt2": tr["B"],
+            "haar_ot_matvec": 0}
+    files = sorted(os.listdir(tr["logdir"]))
+    res["train_openai"] = {"steps": probe.steps,
+                           "dwt_launches": probe.dwt_launches,
+                           "peak_mem_gib": probe.peak_mem_gib,
+                           "files": files}
+    if (len(probe.steps) != 1 or not np.isfinite(step["loss"])
+            or step["dwt"] != want or probe.dwt_launches != want
+            or not {"state_1.pt", "train_state_latest.pt"} <= set(files)):
+        raise AssertionError(f"train_openai in the group: "
+                             f"{res['train_openai']}, want {want}")
+    peak["train_openai"] = probe.peak_mem_gib
+    secs["train_openai"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ref, _ = config.make_openai_model(cfg["model"], device=dev)
+    weights.randomize_(ref, 77)
+    ref.eval()
+    sharded = copy.deepcopy(ref)
+    sharding.shard_params_fsdp(sharded, sharding.make_mesh(
+        axis_names=("fsdp",)))
+    g = torch.Generator(dev).manual_seed(78)
+    x = torch.randn((2, 3, size, size), generator=g, device=dev)
+    tt = torch.tensor([10.0, 600.0], device=dev)
+    _reset_peak(dev)
+    loss_ref = ref(x, tt).square().mean()
+    loss_ref.backward()
+    world = torch.distributed.group.WORLD
+    loss = sharded(sharding.shard_batch(x, world),
+                   sharding.shard_batch(tt, world)).square().mean()
+    loss.backward()
+    grad_err = max(
+        float((p.grad.full_tensor() - q.grad).abs().max())
+        / max(float(q.grad.abs().max()), 1e-30)
+        for p, q in zip(sharded.parameters(), ref.parameters()))
+    res["fsdp"] = {"loss": float(loss), "ref_loss": float(loss_ref),
+                   "loss_rel_err": abs(float(loss) / float(loss_ref) - 1),
+                   "grad_rel_err": grad_err, "bound": FSDP_TOL,
+                   "params": sum(p.numel() for p in ref.parameters()),
+                   "peak_mem_gib": _peak_gib(dev)}
+    if res["fsdp"]["loss_rel_err"] > FSDP_TOL or grad_err > FSDP_TOL:
+        raise AssertionError(f"FSDP2 against replicated: {res['fsdp']}")
+    del ref, sharded, x, loss, loss_ref
+    if _cuda(dev):
+        torch.cuda.empty_cache()
+    peak["fsdp"] = res["fsdp"]["peak_mem_gib"]
+    secs["fsdp"] = time.perf_counter() - t0
+
+    res["launches"] = {
+        "dwt": dict(probe.dwt_launches),
+        "winograd": {k: sum(v["winograd_launches"][k]
+                            for v in loops.values())
+                     for k in loops["mesh"]["winograd_launches"]}}
+    return res
+
+
+def scale_out_two_ranks(plan, dev) -> dict:
+    """Part (b), one of two ranks on the one card, in a gloo group (NCCL
+    refuses two ranks on one device): the guided CLI with --dp, one image a
+    rank; this rank's CG iterations and launches (exact, as part (a)'s);
+    rank 0 keeps the gathered samples; then the gloo collectives' times,
+    CUDA tensors through the host."""
+    import torch
+    probe = CliProbe()
+    t0 = time.perf_counter()
+    probe.run(scale_out_cli_argv(plan, dev, os.path.join(plan["out"],
+                                                         "cli_ranks"), True)
+              + ["--dp"])
+    res = {"cli": scale_out_cli_record(probe, plan["steps"],
+                                       SCALE_OUT_SIGMA_MAX),
+           "cli_s": time.perf_counter() - t0,
+           "rank": torch.distributed.get_rank(),
+           "world": torch.distributed.get_world_size()}
+    if torch.distributed.get_rank() == 0:
+        torch.save(probe.samples, os.path.join(plan["out"], "b_samples.pt"))
+    res["collectives"] = scale_out_collectives(dev, 1 << 20, 50)
+    res["launches"] = {"dwt": probe.dwt_launches,
+                       "winograd": probe.winograd_launches}
+    return res
+
+
+def scale_out_rank(part: str, plan_path: str) -> int:
+    """A rank of the scale_out phase (chip_smoke.py --scale-out PART PLAN,
+    under the environment phase_scale_out gives it), started while the
+    inputs are written: it waits for PLAN to appear. Part "a" joins the
+    launcher's group through the CLI's --dp, part "t" (part (a)'s
+    training) through setup_dist, part "b" a gloo group first.
+    Writes its record to PLAN's folder as {part}{rank}.json."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # deterministic kernels (cuDNN's, cuBLAS's with the workspace the
+    # launcher set): a nondeterministic backward's roundings, scaled by
+    # sigma^2 at a high sigma, part two runs of one batch by whole pixels
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from kdip_tpu_torch.parallel import dist as pdist
+    deadline = time.time() + SCALE_OUT_TIMEOUT
+    while not os.path.exists(plan_path):  # the inputs are being written
+        if time.time() > deadline:
+            raise TimeoutError(f"no {plan_path}")
+        time.sleep(0.2)
+    with open(plan_path) as f:
+        plan = json.load(f)
+    dev = torch.device(plan["device"], 0) if plan["device"] == "cuda" \
+        else torch.device("cpu")
+    t0 = time.perf_counter()
+    if part == "b":
+        pdist.setup_dist(device=plan["device"], backend="gloo")
+        res = scale_out_two_ranks(plan, dev)
+    elif part == "t":
+        res = scale_out_train_rank(plan, dev)
+    else:
+        res = scale_out_one_rank(plan, dev)
+    res["total_s"] = time.perf_counter() - t0
+    rank = torch.distributed.get_rank()
+    with open(os.path.join(plan["out"], f"{part}{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def scale_out_start(plan_path: str, part: str, world: int, log_dir: str):
+    """Starts `world` ranks of this script's part `part` on a free port of
+    localhost (RANK, WORLD_SIZE, LOCAL_RANK 0: every rank on the one card,
+    MASTER_ADDR, MASTER_PORT; cuBLAS's deterministic workspace), each
+    logging to log_dir/{part}{rank}.log; returns (part, processes, logs)
+    for scale_out_wait."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        logs.append(os.path.join(log_dir, f"{part}{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--scale-out",
+                 part, plan_path], env=env, stdout=f,
+                stderr=subprocess.STDOUT, cwd=ROOT))
+    return part, procs, logs
+
+
+def scale_out_stop(started) -> None:
+    """Kills every rank of `started` that is still running."""
+    for _, procs, _ in started:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def scale_out_wait(started, plan_path: str, deadline: float):
+    """Waits for every rank of every (part, processes, logs) in `started`
+    until `deadline` (time.time()) and returns each part's records;
+    raises with a rank's log tail if one failed."""
+    for _, procs, _ in started:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    return [_scale_out_records(plan_path, *s) for s in started]
+
+
+def _scale_out_records(plan_path, part, procs, logs):
+    out = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"scale_out part {part} rank {r} exited "
+                                 f"{p.returncode}:\n{tail}")
+        with open(os.path.join(os.path.dirname(plan_path),
+                               f"{part}{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def scale_out_run(root, plan_path, started, deadline, dev):
+    """The phase's inputs (written while the ranks start), the plan that
+    sets the ranks to work, and their records: (part (a)'s, part (b)'s,
+    the seconds)."""
+    import torch
+    from kdip_tpu_torch import config, weights
+    t0 = time.perf_counter()
+    cfg_path, ckpt, _, _ = cli_inputs(root, "cli", "test_ffhq_dwt.json",
+                                      True, 70, SCALE_OUT_IMAGES)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["model"]["sigma_max"] = SCALE_OUT_SIGMA_MAX
+    cfg_ranks = os.path.join(root, "cli", "config_ranks.json")
+    with open(cfg_ranks, "w") as f:
+        json.dump(cfg, f)
+    train_root = os.path.join(root, "train")
+    os.makedirs(train_root)
+    train_cfg = write_config(os.path.join(train_root, "config.json"),
+                             "train_ffhq_dwt.json",
+                             training_folder(train_root, seed=71))
+    unet, _ = config.make_openai_model(
+        config.load_config(train_cfg)["model"], device="cpu")
+    torso = os.path.join(train_root, "torso.pt")
+    torch.save(weights.randomize_(unet, 71).state_dict(), torso)
+    n_params = sum(p.numel() for p in unet.parameters())
+    del unet
+    real, fake = write_eval_folders(os.path.join(root, "eval"), seed=72,
+                                    n=SCALE_OUT_EVAL, dev=dev)
+    pth = os.path.join(root, "pt_inception_random.pth")
+    torch.save(random_inception_state_dict(dev, seed=73), pth)
+    plan = {"device": dev.type, "steps": SCALE_OUT_STEPS, "out": root,
+            "cli": {"config": cfg_path, "config_ranks": cfg_ranks,
+                    "ckpt": ckpt, "images": SCALE_OUT_IMAGES,
+                    "op": config_path("inpainting_config.yaml")},
+            "loop": {"config": config_path("test_ffhq.json"),
+                     "B": LOOP_B, "MB": LOOP_MB,
+                     "steps": SCALE_OUT_LOOP_STEPS},
+            "train": {"config": train_cfg, "ckpt": torso, "B": 2,
+                      "params": n_params,
+                      "logdir": os.path.join(train_root, "logs")},
+            "eval": {"real": real, "fake": fake, "weights": pth,
+                     "size": EVAL_SIZE, "batch": EVAL_BATCH,
+                     "n": SCALE_OUT_EVAL}}
+    with open(plan_path + ".tmp", "w") as f:
+        json.dump(plan, f)
+    os.replace(plan_path + ".tmp", plan_path)  # the ranks start their work
+    parts_s = {"inputs": time.perf_counter() - t0}
+    if _cuda(dev):
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (a,), (t,), b = scale_out_wait(started, plan_path, deadline)
+    parts_s.update(ranks_wall=time.perf_counter() - t0, a=a["total_s"],
+                   a_training=t["total_s"], b=max(r["total_s"] for r in b))
+    return a, t, b, parts_s
+
+
+def phase_scale_out(tmp, dev):
+    """scale_out: the port's data-parallel paths (`kdip_tpu_torch.parallel`)
+    at full width, each rank a process of this script. Part (a): one rank
+    under NCCL (WORLD_SIZE 1), through the entry points a user calls, as
+    two processes side by side: sampling and scoring (scale_out_one_rank)
+    and training (scale_out_train_rank). Part (b): two ranks on the one
+    card under gloo,
+    the guided CLI with --dp, one image a rank: the only run on the card
+    where blocks are split, reduced and gathered across ranks; both ranks
+    take the same CG iterations and exit at the same residual, within
+    SCALE_OUT_RESID_REL of part (a)'s, their fused matvec launches exact,
+    and the gathered samples within an RMS of SCALE_OUT_RANKS_RMS of part
+    (a)'s (both at sigma_max SCALE_OUT_SIGMA_MAX). The parts run side by
+    side, started while scale_out_run writes the inputs: the CLI's
+    Lightning checkpoint of seeded random ADMUNetV2 weights and
+    SCALE_OUT_IMAGES PNGs (cli_inputs), the fine-tune's torso and folder,
+    two folders of SCALE_OUT_EVAL images and a seeded Inception; every
+    rank is stopped when the phase ends, whatever ends it. Prints the
+    phase's and each part's seconds, the per-rank peak memory and the
+    collectives' times. Returns the DWT and Winograd launches of every run
+    in the phase."""
+    import torch
+    root = os.path.join(tmp, "scale_out")
+    os.makedirs(root)
+    # both parts start now, their processes' start-up beside the inputs'
+    # writing; part (b)'s two ranks run beside part (a)'s one
+    plan_path = os.path.join(root, "plan.json")
+    started = [scale_out_start(plan_path, "a", 1, root),
+               scale_out_start(plan_path, "t", 1, root),
+               scale_out_start(plan_path, "b", 2, root)]
+    deadline = time.time() + SCALE_OUT_TIMEOUT
+    try:
+        a, t, b, parts_s = scale_out_run(root, plan_path, started,
+                                         deadline, dev)
+    finally:
+        scale_out_stop(started)
+
+    want = torch.cat(torch.load(os.path.join(root, "a_samples.pt")))
+    got = torch.cat(torch.load(os.path.join(root, "b_samples.pt")))
+    err = float((got - want).abs().max())
+    rms = float((got - want).square().mean().sqrt())
+    iters = [r["cli"]["cg_total_iters"] for r in b]
+    # each sampler call's CG exit residual: the joint one on both ranks
+    resid = [[c["cg_max_residual"] for c in r["cli"]["calls"]] for r in b]
+    ref = [c["cg_max_residual"]
+           for c in a["cli"]["ranks_ref"]["calls"]]
+    resid_rel = max(abs(x / y - 1) for rr in resid for x, y in zip(rr, ref))
+    if got.shape != want.shape or not rms <= SCALE_OUT_RANKS_RMS or \
+            iters[0] != iters[1] or resid[0] != resid[1] or \
+            not resid_rel <= SCALE_OUT_RESID_REL or \
+            any(r["world"] != 2 for r in b):
+        raise AssertionError(f"two ranks on one card against part (a): RMS "
+                             f"{rms} (bound {SCALE_OUT_RANKS_RMS}), max "
+                             f"{err}, CG iterations {iters}, CG residuals "
+                             f"{resid} against {ref} (relative {resid_rel},"
+                             f" bound {SCALE_OUT_RESID_REL})")
+    runs = [a, t] + b
+    dwt = {k: sum(r["launches"]["dwt"][k] for r in runs)
+           for k in a["launches"]["dwt"]}
+    wino = {k: sum(r["launches"]["winograd"][k] for r in runs)
+            for k in t["launches"]["winograd"]}
+    emit({"phase": "scale_out", "steps": SCALE_OUT_STEPS,
+          "images": SCALE_OUT_IMAGES, "parts_s": parts_s,
+          "a": {k: v for k, v in a.items() if k != "launches"},
+          "a_training": {k: v for k, v in t.items() if k != "launches"},
+          "b": [{k: v for k, v in r.items() if k != "launches"} for r in b],
+          "b_vs_a_rms": rms, "b_vs_a_rms_bound": SCALE_OUT_RANKS_RMS,
+          "b_vs_a_max_abs": err, "sigma_max_b": SCALE_OUT_SIGMA_MAX,
+          "b_cg_total_iters": iters, "b_cg_max_residual": resid,
+          "a_ref_cg_max_residual": ref, "b_vs_a_resid_rel": resid_rel,
+          "b_vs_a_resid_rel_bound": SCALE_OUT_RESID_REL,
+          "a_ref_cg_total_iters": a["cli"]["ranks_ref"]["cg_total_iters"],
+          "peak_mem_gib": {"a_rank0": a["peak_mem_gib"],
+                           "a_training_rank0": t["peak_mem_gib"],
+                           **{f"b_rank{r['rank']}":
+                              r["cli"]["peak_mem_gib"] for r in b}},
+          "dwt_launches": dwt, "winograd_launches": wino,
+          "nvidia_smi": nvidia_smi() if _cuda(dev) else None})
+    return dwt, wino
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3794,6 +4495,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_slice["uncond_cpu_vs_card"], wino_by_slice["uncond_cpu_vs_card"] = \
         timed("uncond_cpu_vs_card", phase_uncond_cpu_vs_card, dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_slice["scale_out"], wino_by_slice["scale_out"] = timed(
+            "scale_out", phase_scale_out, tmp, dev)
 
     rows = timed("kernel_rows", kernel_rows, dev, {
         k: sum(c[k] for c in by_slice.values()) for k in launches})
@@ -3816,4 +4521,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--scale-out"]:
+        sys.exit(scale_out_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -15,3 +15,4 @@ from . import (autoi, brownian, ckpt, config, data,  # noqa: F401
 from .models import adm, inception, kdiff, layers  # noqa: F401
 from .ops import (dwt, fft, kernels, resize, transforms,  # noqa: F401
                   winograd)
+from .parallel import dist, sharding  # noqa: F401

@@ -27,7 +27,7 @@ import torch
 from .models.adm import ADMUNetV2
 
 
-def _refuse_orbax(path: str) -> None:
+def refuse_orbax(path: str) -> None:
     if os.path.isdir(path):
         raise SystemExit(
             f"{path} is a directory: an orbax checkpoint of kdip_tpu, which "
@@ -35,14 +35,16 @@ def _refuse_orbax(path: str) -> None:
             "PyTorch port has no orbax reader)")
 
 
-def load_torch_checkpoint(path: str) -> Dict[str, Any]:
-    """A .pt/.ckpt file, loaded on the CPU, as a flat state dict; a
+def load_torch_checkpoint(path) -> Dict[str, Any]:
+    """A .pt/.ckpt file (a path, or a file object holding its bytes),
+    loaded on the CPU, as a flat state dict; a
     Lightning checkpoint's {"state_dict": ...} is unwrapped (ref:
     train_openai.py:56-88). As in kdip_tpu, the whole pickle is read
     (weights_only=False): a Lightning file's hyper_parameters, callbacks
     and loops may hold objects beyond tensors and plain containers. So a
     checkpoint is trusted as code is."""
-    _refuse_orbax(path)
+    if isinstance(path, str):
+        refuse_orbax(path)
     obj = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(obj, dict) and "state_dict" in obj:
         return obj["state_dict"]
@@ -89,9 +91,10 @@ def save_checkpoint(path: str, obj: Any) -> None:
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str) -> Any:
-    """A file that save_checkpoint wrote, tensors on the CPU. It holds
-    tensors and plain containers only (weights_only). An orbax directory
-    is refused."""
-    _refuse_orbax(path)
+def load_checkpoint(path) -> Any:
+    """A file that save_checkpoint wrote (a path, or a file object holding
+    its bytes), tensors on the CPU. It holds tensors and plain containers
+    only (weights_only). An orbax directory is refused."""
+    if isinstance(path, str):
+        refuse_orbax(path)
     return torch.load(path, map_location="cpu", weights_only=True)

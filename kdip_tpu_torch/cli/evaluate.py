@@ -15,6 +15,14 @@ Feature backbones:
 two folders instead. The flags, defaults and JSON keys are `kdip_tpu`'s,
 with one more: `--device` (default `cuda`; the CPU only when asked for).
 Images are decoded by a pool of threads, in `kdip_tpu`'s order.
+
+`--dp` extracts the features data-parallel over the ranks of a process
+group, one card each (`torchrun --nproc_per_node=N -m
+kdip_tpu_torch.cli.evaluate real/ fake/ --dp ...`): each batch is padded
+with zero images to a multiple of N, each rank decodes its block and runs
+it through the backbone, and the blocks are gathered in rank order
+(`kdip_tpu`'s cli/evaluate.py:91-118). Every rank computes FID and KID;
+rank 0 prints them and writes --out.
 """
 
 from __future__ import annotations
@@ -23,14 +31,19 @@ import argparse
 import contextlib
 import json
 import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from .. import ckpt, evaluation, metrics
 from ..data import FolderOfImages
 from ..models.inception import make_inception_extractor
 from ..ops.resize import jax_resize
-from .sample_condition import _device, load_lpips_params
+from ..parallel import dist as pdist
+from ..parallel import sharding
+from .sample_condition import _device, dp_group, load_lpips_params
 
 DECODE_WORKERS = min(8, os.cpu_count() or 1)
 PIXELS_SIZE = 32
@@ -59,8 +72,9 @@ def build_argparser():
     p.add_argument("--lpips-weights", default=None,
                    help="kdip_tpu's LPIPS-VGG .npz for paired mode")
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel feature extraction over several "
-                        "cards: not ported yet (refused)")
+                   help="data-parallel feature extraction over the ranks of "
+                        "a process group, one card each (launch with "
+                        "torchrun)")
     p.add_argument("--out", default=None, help="optional JSON output path")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; pass cpu "
@@ -117,36 +131,73 @@ def _extractor(args, dev):
     return pixels
 
 
-def folder_features(path: str, extractor, args, dev) -> torch.Tensor:
+def _rank_blocks(ds, n: int, batch_size: int, rank: int, world: int):
+    """(this rank's block, the batch's size) for each batch of the first n
+    images: the batch padded with zero images to a multiple of `world`
+    and split in rank order. A pool of DECODE_WORKERS threads decodes the
+    block's images alone, two batches ahead of the one yielded (as
+    `FolderOfImages.batches` prefetches)."""
+    def submit(start):
+        size = min(batch_size, n - start)
+        k = -(-size // world)
+        lo, hi = (start + min(size, i * k) for i in (rank, rank + 1))
+        return size, k, [pool.submit(ds.__getitem__, j)
+                         for j in range(lo, hi)]
+
+    blank = None
+
+    def collect(size, k, futures):
+        nonlocal blank
+        imgs = [f.result()[0] for f in futures]
+        if blank is None:
+            blank = np.zeros_like(imgs[0] if imgs else ds[0][0])
+        return np.stack(imgs + [blank] * (k - len(imgs))), size
+
+    with ThreadPoolExecutor(DECODE_WORKERS) as pool:
+        pending = deque()
+        for start in range(0, n, batch_size):
+            pending.append(submit(start))
+            if len(pending) > 2:
+                yield collect(*pending.popleft())
+        while pending:
+            yield collect(*pending.popleft())
+
+
+def folder_features(path: str, extractor, args, dev,
+                    group=None) -> torch.Tensor:
     """The features of the first --max-images images of the folder (all of
-    them by default), in `FolderOfImages`' order, on dev."""
+    them by default), in `FolderOfImages`' order, on dev. Under a process
+    group each batch, padded with zero images to a multiple of the world
+    size, is split over the ranks: a rank decodes and extracts its block
+    alone, and the features are gathered in rank order."""
     ds = FolderOfImages(path, size=args.size)
     n = len(ds) if args.max_images is None else min(args.max_images, len(ds))
-    feats, seen = [], 0
-    with contextlib.closing(ds.batches(args.batch_size,
-                                       num_workers=DECODE_WORKERS)) as it:
-        for batch in it:
-            feats.append(extractor(torch.from_numpy(batch).to(dev)))
-            seen += batch.shape[0]
-            if seen >= n:
-                break
-    return torch.cat(feats)[:n]
+    feats = []
+    with contextlib.closing(_rank_blocks(
+            ds, n, args.batch_size, pdist.get_rank(group),
+            pdist.get_world_size(group))) as blocks:
+        for x, size in blocks:
+            local = extractor(torch.from_numpy(x).to(dev))
+            feats.append(torch.cat(sharding.all_gather_blocks(
+                local, group))[:size])
+    return torch.cat(feats)
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     dev = _device(args.device)
-    if args.dp:
-        raise SystemExit("--dp (data-parallel feature extraction over "
-                         "several cards) is not ported yet: ROADMAP queue "
-                         "1, entry 9")
+    group, dev = dp_group(args, dev)
+    # every rank computes the metrics; rank 0 reports them, as kdip_tpu's
+    # process 0 does
+    report = (_report if group is None or pdist.get_rank(group) == 0
+              else lambda out, path: out)
     if args.paired:
-        return _report(_paired(args, dev), args.out)
+        return report(_paired(args, dev), args.out)
 
     extractor = _extractor(args, dev)
-    f_real = folder_features(args.real, extractor, args, dev)
-    f_fake = folder_features(args.fake, extractor, args, dev)
-    return _report({
+    f_real = folder_features(args.real, extractor, args, dev, group)
+    f_fake = folder_features(args.fake, extractor, args, dev, group)
+    return report({
         "fid": float(evaluation.fid(f_real, f_fake)),
         "kid": float(evaluation.kid(f_real, f_fake)),
         "n_real": int(f_real.shape[0]),

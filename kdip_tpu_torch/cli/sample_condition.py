@@ -19,11 +19,25 @@ with the EDM preconditioning, its ortho basis from the config without
 the ADM UNet. Per-batch randomness comes from two torch.Generators seeded
 from numpy's SeedSequence([seed, 2*start]) and ([seed, 2*start+1]), so a
 --resume run reproduces what the uninterrupted run would have drawn.
+
+`--dp` samples each batch data-parallel over the ranks of a process group,
+one card each (`torchrun --nproc_per_node=N -m
+kdip_tpu_torch.cli.sample_condition --dp --batch-size B ...`; N must
+divide B): every rank makes the global batch's measurement and draws and
+samples its block with the batched sampler (`kdip_tpu`'s --dp runs its
+batched sampler on a sharded batch), whose joint CG sums its inner
+products across the ranks (`parallel.sharding.make_sharded_sampler`), so
+the samples are the one-process batched run's. Rank 0 gathers them and
+alone writes args.yaml, the journal, the PNGs and the averages; the
+checkpoint, and under --resume the journal, are read on rank 0 and
+broadcast.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -35,6 +49,8 @@ from .. import ckpt, config as kconfig, diffusion, guidance, metrics
 from .. import operators, sampling_api, weights
 from ..data import FolderOfImages, to_uint8_image, write_png
 from ..models import adm
+from ..parallel import dist as pdist
+from ..parallel import sharding
 from ..utils import seeded_generator
 
 LPIPS_NOTE = (
@@ -59,8 +75,10 @@ def build_argparser():
                    help="test images per sampler call (requires -n 1 when "
                         "> 1); the reference asserts batch_size == 1")
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel eval over several cards: not ported "
-                        "yet (refused)")
+                   help="data-parallel sampling over the ranks of a "
+                        "process group, one card each (launch with "
+                        "torchrun; --batch-size must divide by the world "
+                        "size)")
     p.add_argument("--checkpoint", type=str,
                    default="../model_zoo/diffusion_ffhq_10m.pt")
     p.add_argument("--config", type=str, default="configs/test_ffhq.json")
@@ -161,13 +179,15 @@ def _recon_mse(path: str):
     return {k: np.asarray(data[k], np.float32) for k in keys}
 
 
-def _load_model(args, config, dev):
+def _load_model(args, config, dev, group=None):
     """The model from the config and the checkpoint, and the DDPM tables.
     An image_v2 config gives its k-diffusion UNet in float32 (the tables
     unused by its EDM path; `kdip_tpu` cli/sample_condition.py:139-147,
     179-188); otherwise the ADM UNet (with the variance head under --v2),
-    pre-cast under --dtype bfloat16."""
-    sd = ckpt.load_torch_checkpoint(args.checkpoint)
+    pre-cast under --dtype bfloat16. Under a process group rank 0 reads
+    the checkpoint and broadcasts it."""
+    sd = (ckpt.load_torch_checkpoint(args.checkpoint) if group is None
+          else pdist.load_state_dict(args.checkpoint, group=group))
     if config["model"]["type"] == "image_v2":
         model = ckpt.load_strict(kconfig.make_model(config, device=dev), sd)
         tables = diffusion.make_diffusion(1000, "linear", device=dev)
@@ -185,6 +205,20 @@ def _load_model(args, config, dev):
     return model.eval().requires_grad_(False), tables
 
 
+def dp_group(args, dev: torch.device):
+    """(the process group, this rank's device) under --dp, after joining
+    the launcher's group; (None, dev) without --dp. --dp without a process
+    group to join exits with a message."""
+    if not args.dp:
+        return None, dev
+    if not pdist.setup_dist(device=dev.type):
+        raise SystemExit("--dp needs a process group: launch with torchrun "
+                         "--nproc_per_node=N (or set RANK, WORLD_SIZE, "
+                         "MASTER_ADDR and MASTER_PORT)")
+    return (torch.distributed.group.WORLD,
+            pdist.dev() if dev.type == "cuda" else dev)
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     dev = _device(args.device)
@@ -193,9 +227,12 @@ def main(argv=None):
     model_config = config["model"]
     dataset_config = config["dataset"]
     native_v2 = model_config["type"] == "image_v2"
-    if args.dp:
-        raise SystemExit("--dp (data-parallel eval over several cards) is "
-                         "not ported yet: ROADMAP queue 1, entry 9")
+    group, dev = dp_group(args, dev)
+    world = pdist.get_world_size(group) if group else 1
+    lead = group is None or pdist.get_rank(group) == 0
+    if args.batch_size % world:
+        raise SystemExit(f"--dp needs --batch-size divisible by the world "
+                         f"size ({world})")
     if args.batch_size > 1 and args.n != 1:
         raise SystemExit("--batch-size > 1 requires -n 1 (one sample per "
                          "image; samples are paired with measurements "
@@ -208,7 +245,7 @@ def main(argv=None):
     if args.spatial_var:
         ortho_tf_type = None
 
-    model, tables = _load_model(args, config, dev)
+    model, tables = _load_model(args, config, dev, group)
     recon_mse = None
     if args.xstart_cov_type == "analytic":
         recon_mse = _recon_mse(model_config.get("recon_mse"))
@@ -233,7 +270,9 @@ def main(argv=None):
         sigma_max=model_config["sigma_max"],
         sampler=args.sampler or ("euler" if args.euler else "heun"),
         ode=args.ode)
-    batch = args.batch_size
+    if group is not None:
+        # the batched sampler over each rank's block (`kdip_tpu` :253-259)
+        scfg = dataclasses.replace(scfg, per_sample_map=False)
     uncond_pair = None
     if native_v2:
         # 9 zeros of augmentation conditioning under augment_wrapper
@@ -252,13 +291,17 @@ def main(argv=None):
         v2=args.v2 or native_v2, image_size=size[0],
         channels=model_config.get("input_channels", 3), device=dev,
         uncond_pair=uncond_pair)
+    if group is not None:
+        sampler = _gathered(sharding.make_sharded_sampler(sampler, group),
+                            group)
 
     lpips_params = None
     if args.lpips_weights:
         lpips_params = load_lpips_params(args.lpips_weights, dev)
 
-    os.makedirs(args.logdir, exist_ok=True)
-    kconfig.save_yaml(vars(args), os.path.join(args.logdir, "args.yaml"))
+    if lead:
+        os.makedirs(args.logdir, exist_ok=True)
+        kconfig.save_yaml(vars(args), os.path.join(args.logdir, "args.yaml"))
 
     test_set = FolderOfImages(dataset_config["location"])
     metrics_list = []
@@ -278,9 +321,13 @@ def main(argv=None):
                # run with another batch layout would draw other samples
                "batch_size": args.batch_size, "dp": args.dp,
                "device": dev.type}
-    if args.resume and os.path.exists(journal_path):
+    lines = None
+    if lead and args.resume and os.path.exists(journal_path):
         with open(journal_path) as f:
             lines = f.read().splitlines()
+    if group is not None:
+        lines = pdist.broadcast_object(lines, group)
+    if lines is not None:
         header = json.loads(lines[0]) if lines else {}
         if header.get("run_cfg") != run_cfg:
             raise SystemExit(
@@ -292,7 +339,7 @@ def main(argv=None):
             done[rec.pop("image")] = rec
         metrics_list.extend(done.values())
         print(f"resume: {len(done)} images already done", flush=True)
-    else:
+    elif lead:
         with open(journal_path, "w") as f:  # fresh run: truncate the journal
             f.write(json.dumps({"run_cfg": run_cfg}) + "\n")
     n_images = len(test_set) if args.max_images is None \
@@ -303,11 +350,32 @@ def main(argv=None):
     try:
         _run_images(args, dev, n_images, test_set, operator, sampler,
                     metrics_list, lpips_params, done, journal_path,
-                    run_stats)
+                    run_stats, lead)
     except KeyboardInterrupt:
         # graceful interrupt (ref: sample_condition_openai.py:214-217):
         # report and save the averages over the images completed so far
         print(f"interrupted after {len(metrics_list)} images", flush=True)
+    avg = (_summarize(args, gcfg, metrics_list, run_stats, t_start)
+           if lead else None)
+    return avg if group is None else pdist.broadcast_object(avg, group)
+
+
+def _gathered(sharded, group):
+    """The sharded sampler with every rank's block gathered: each rank
+    holds the whole batch's samples, as the one-process sampler returns
+    them."""
+    def sample(measurement, n=1, generator=None, return_info=False):
+        out = sharded(measurement, n, generator=generator,
+                      return_info=return_info)
+        local = out[0] if return_info else out
+        whole = torch.cat(sharding.all_gather_blocks(local, group))
+        return (whole, out[1]) if return_info else whole
+    return sample
+
+
+def _summarize(args, gcfg, metrics_list, run_stats, t_start):
+    """The run's averages, printed and written to avg_metrics.yaml ({}
+    when no image was done)."""
     if not metrics_list:
         return {}
     avg = metrics.calculate_average_metric(metrics_list)
@@ -334,10 +402,14 @@ def main(argv=None):
 
 
 def _run_images(args, dev, n_images, test_set, operator, sampler,
-                metrics_list, lpips_params, done, journal_path, run_stats):
+                metrics_list, lpips_params, done, journal_path, run_stats,
+                lead=True):
+    """Samples the images batch by batch; the lead rank (the only one
+    without --dp) scores them and writes the journal and PNGs."""
     batch = args.batch_size
     n_per_call = batch if batch > 1 else args.n
-    with open(journal_path, "a") as journal:
+    with (open(journal_path, "a") if lead
+          else contextlib.nullcontext()) as journal:
         for start in range(0, n_images, batch):
             idxs = list(range(start, min(start + batch, n_images)))
             if all(i in done for i in idxs):
@@ -356,7 +428,8 @@ def _run_images(args, dev, n_images, test_set, operator, sampler,
                 float(info["cg_max_residual"]))
             run_stats["cg_total_iters"] = (run_stats.get("cg_total_iters", 0)
                                            + int(info["cg_total_iters"]))
-
+            if not lead:
+                continue
             for bi, i in enumerate(idxs):
                 if i in done:
                     continue

@@ -22,6 +22,17 @@ of an epoch that starts at step s are shuffled with seed + s, as in
 the uninterrupted run. `--num-workers` decodes with a thread pool.
 The CLI leaves torch's TF32 switches as they are: by PyTorch's defaults
 cuDNN's float32 convolutions may use TF32 on the card and matmuls do not.
+
+Launched by torchrun (`torchrun --nproc_per_node=N -m
+kdip_tpu_torch.cli.train_openai ...`) it is data-parallel over the N
+ranks, one card each (`kdip_tpu` runs data-parallel over every local
+device): each rank takes its block of the global batch and of its sigma
+and noise draws, the gradients are averaged over the ranks before Adam,
+and rank 0 alone writes the logs and checkpoints; `--resume` reads on rank
+0 and broadcasts. --per-sample-map applies at one rank only. `kdip_tpu`
+shrinks its device count until it divides the batch; ranks cannot sit
+out of their group, so the port refuses a --batch-size the world size
+does not divide.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import time
 import torch
 
 from .. import ckpt, config as kconfig, precond, samplers, schedules, train
+from ..parallel import dist as pdist
 from ..data import (FolderOfImages, KarrasAugmentationPipeline,
                     augment_batch, to_uint8_image, write_png)
 from ..models import adm
@@ -123,6 +135,14 @@ def _save_preview(ema_model, tables, size, model_config, args, step, dev):
 def main(argv=None) -> train.TrainState:
     args = build_argparser().parse_args(argv)
     dev = _device(args.device)
+    group = None
+    if pdist.setup_dist(device=dev.type):
+        group = torch.distributed.group.WORLD
+        dev = pdist.dev() if dev.type == "cuda" else dev
+    world, lead = pdist.get_world_size(group), pdist.get_rank(group) == 0
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} does not divide "
+                         f"over the {world} ranks")
 
     config = kconfig.load_config(args.config)
     model_config = config["model"]
@@ -134,7 +154,9 @@ def main(argv=None) -> train.TrainState:
 
     # fresh head, pretrained torso (ref: train_openai.py:119-129)
     init_out_cov_(model.out_cov, args.seed)
-    ckpt.load_strict(unet, ckpt.load_torch_checkpoint(args.checkpoint))
+    ckpt.load_strict(unet, pdist.load_state_dict(args.checkpoint,
+                                                 group=group))
+    pdist.sync_params(model, group)
 
     ortho_tf = OrthoTransform(model_config.get("ortho_tf_type"))
     density = make_sample_density(
@@ -154,17 +176,19 @@ def main(argv=None) -> train.TrainState:
         # kdip_tpu's state is an orbax directory: load_checkpoint refuses it
         orbax = os.path.join(args.logdir, "train_state_latest")
         path = orbax if os.path.isdir(orbax) else latest
-        if os.path.exists(path):
-            saved = ckpt.load_checkpoint(path)
+        saved = pdist.read_if_present(path, ckpt.load_checkpoint, group)
+        if saved is not None:
             state.load_state_dict(saved["train_state"])
             # the EMA warmup fast-forwarded to the saved step
             ema_sched.last_epoch = int(saved["ema_sched_last_epoch"])
             print(f"resumed from {latest} at step {state.step}", flush=True)
     start_step = state.step
 
+    # per-sample-map serializes the batch: a win at one rank only
     step_fn = train.make_train_step(
         loss_fn, density,
-        per_sample_map=args.per_sample_map and args.batch_size > 1)
+        per_sample_map=args.per_sample_map and args.batch_size > 1
+        and world == 1, group=group)
     aug = KarrasAugmentationPipeline(
         a_prob=model_config.get("augment_prob", 0.0))
     dataset = FolderOfImages(config["dataset"]["location"], size=size)
@@ -174,13 +198,14 @@ def main(argv=None) -> train.TrainState:
                          f"{config['dataset']['location']}, fewer than "
                          f"--batch-size {args.batch_size}")
 
-    os.makedirs(args.logdir, exist_ok=True)
-    log_file = open(os.path.join(args.logdir, "train_log.csv"), "a",
-                    newline="")
-    logger = csv.writer(log_file)
-    logger.writerow(["step", "loss", "ema_decay", "time"])
-    # TensorBoard scalar curves (ref: train_openai.py:70 TensorBoardLogger)
-    tb = EventFileWriter(os.path.join(args.logdir, "tb"))
+    if lead:
+        os.makedirs(args.logdir, exist_ok=True)
+        log_file = open(os.path.join(args.logdir, "train_log.csv"), "a",
+                        newline="")
+        logger = csv.writer(log_file)
+        logger.writerow(["step", "loss", "ema_decay", "time"])
+        # TensorBoard scalars (ref: train_openai.py:70 TensorBoardLogger)
+        tb = EventFileWriter(os.path.join(args.logdir, "tb"))
 
     # A SIGTERM (a preemption) requests a clean stop: the loop saves
     # train_state_latest and returns, so a --resume relaunch continues
@@ -196,11 +221,14 @@ def main(argv=None) -> train.TrainState:
         installed = False  # not the main thread (e.g. some test runners)
 
     def save(step):
-        ckpt.save_checkpoint(os.path.join(args.logdir, f"state_{step}.pt"),
-                             state.ema.state_dict())
-        ckpt.save_checkpoint(latest, {
-            "train_state": state.state_dict(),
-            "ema_sched_last_epoch": ema_sched.last_epoch})
+        if lead:
+            ckpt.save_checkpoint(os.path.join(args.logdir,
+                                              f"state_{step}.pt"),
+                                 state.ema.state_dict())
+            ckpt.save_checkpoint(latest, {
+                "train_state": state.state_dict(),
+                "ema_sched_last_epoch": ema_sched.last_epoch})
+        pdist.barrier("train_openai_save")
 
     step = start_step
     t0 = time.time()
@@ -219,7 +247,7 @@ def main(argv=None) -> train.TrainState:
                                                           step))
                 ema_sched.step()
                 step += 1
-                if step % 50 == 0 or step == 1:
+                if lead and (step % 50 == 0 or step == 1):
                     loss = float(loss)
                     print(f"step {step}: loss {loss:.4f} ema {decay:.5f}",
                           flush=True)
@@ -227,7 +255,8 @@ def main(argv=None) -> train.TrainState:
                     log_file.flush()
                     tb.add_scalars(step, [("train/loss", loss),
                                           ("train/ema_decay", decay)])
-                if args.preview_every and step % args.preview_every == 0:
+                if (lead and args.preview_every
+                        and step % args.preview_every == 0):
                     _save_preview(state.ema, tables, size, model_config,
                                   args, step, dev)
                 if stop_requested["flag"]:
@@ -242,8 +271,9 @@ def main(argv=None) -> train.TrainState:
         if step > 0:
             save(step)
     finally:
-        log_file.close()
-        tb.close()
+        if lead:
+            log_file.close()
+            tb.close()
         if installed:  # main() may run inside a caller's process
             signal.signal(signal.SIGTERM, previous_sigterm)
     print(f"done: {step} steps in {time.time() - t0:.0f}s")

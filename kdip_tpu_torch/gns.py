@@ -5,14 +5,32 @@
 `GradientNoiseScale` keeps its EMAs in host floats. In one process its
 small-batch statistic is the microbatch gradients' mean squared norm and
 its large-batch statistic the squared norm of their mean
-(`train_loop.TrainLoop.run_step`). `kdip_tpu`'s `grad_norm_stats`, the
-same two statistics across a data-parallel mesh, waits for the port's
-scale-out (ROADMAP queue 1, entry 9).
+(`train_loop.TrainLoop.run_step`). `grad_norm_stats` gives the same two
+statistics across the ranks of a process group, each rank's gradient the
+small batch (the reference's DDP comm hook, k_diffusion/gns.py:5-34).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
+
+import torch
+
+from .parallel import dist as pdist
+
+
+def grad_norm_stats(local_grads: Sequence[torch.Tensor], group=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sq_norm_small, sq_norm_big), float32 0-dim tensors: the group mean
+    of each rank's squared gradient norm and the squared norm of the
+    group-mean gradient, what `GradientNoiseScale.update` consumes
+    (`kdip_tpu` gns.py:20-35, under shard_map). `local_grads` are this
+    rank's gradients, before any reduction; one all_reduce carries both.
+    Without a group both are the local gradient's squared norm."""
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in local_grads])
+    flat, small = pdist.mean_over_ranks(
+        [flat, flat.square().sum().reshape(1)], group)
+    return small[0], flat.square().sum()
 
 
 class GradientNoiseScale:

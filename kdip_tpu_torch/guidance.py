@@ -28,17 +28,24 @@ Differences of form from `kdip_tpu`, not of result:
   (`probes=`) or drawn from a torch.Generator, not from jax's
   fold_in(key, i);
 - the warm start's solver state is a dict of tensors, and the per-sample
-  loop keeps a list of n such states (`kdip_tpu` stacks them).
+  loop keeps a list of n such states (`kdip_tpu` stacks them);
+- under `batch_group(group)` (the sharded sampler of
+  `parallel.sharding`) the batch is split over the group's ranks, and
+  every reduction over it sums across them (the CG's inner products, the
+  iso covariances' means, dps's and stsl's norms and sums), where
+  `kdip_tpu`'s reductions run over one global array.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from . import diffusion as diff
 from . import precond
@@ -47,6 +54,7 @@ from .operators import (BlurOperator, ColorizationOperator,
                         SuperResolutionOperator)
 from .ops import fft as offt
 from .ops.transforms import OrthoTransform, ot_covariance
+from .parallel import dist as pdist
 
 # How each covariance reaches the solve (ref: kdip_tpu guidance.py:585-589,
 # the reference's theta0_var.numel() == 1 dispatch): "switch" - CG with the
@@ -246,11 +254,69 @@ def make_kdiff_v2_uncond(model_apply: Callable, cfg: GuidanceConfig,
 
 
 # ---------------------------------------------------------------------------
+# Reductions over the batch, across the ranks of a sharded batch
+# ---------------------------------------------------------------------------
+
+_BATCH_GROUP = None
+
+
+@contextlib.contextmanager
+def batch_group(group):
+    """Within the block, the batch is this rank's block of a batch split
+    over `group` (a torch.distributed process group; None: no split), and
+    the reductions below sum over the whole batch."""
+    global _BATCH_GROUP
+    previous, _BATCH_GROUP = _BATCH_GROUP, group
+    try:
+        yield
+    finally:
+        _BATCH_GROUP = previous
+
+
+class _AllSum(torch.autograd.Function):
+    """The sum of a partial sum over the group's ranks. Every rank holds
+    the same total downstream, so the gradient of a rank's partial is the
+    total's own: the backward passes it through."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = pdist.all_reduce(t.detach().reshape(1).clone(), _BATCH_GROUP)
+        return out.reshape(t.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def _batch_sum(partial: torch.Tensor) -> torch.Tensor:
+    """A 0-dim sum over this rank's batch, summed over the batch group."""
+    return partial if _BATCH_GROUP is None else _AllSum.apply(partial)
+
+
+def _batch_numel(t: torch.Tensor) -> int:
+    if _BATCH_GROUP is None:
+        return t.numel()
+    return t.numel() * tdist.get_world_size(_BATCH_GROUP)
+
+
+def _batch_mean(t: torch.Tensor) -> torch.Tensor:
+    if _BATCH_GROUP is None:
+        return t.mean()
+    return _batch_sum(t.sum()) / _batch_numel(t)
+
+
+def _batch_norm(t: torch.Tensor) -> torch.Tensor:
+    if _BATCH_GROUP is None:
+        return torch.linalg.vector_norm(t)
+    return torch.sqrt(_batch_sum(t.square().sum()))
+
+
+# ---------------------------------------------------------------------------
 # Likelihood solves: v = (sigma_s^2 I + A Sigma A^T)^{-1} (y - A x0_mean)
 # ---------------------------------------------------------------------------
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+    return _batch_sum(torch.dot(a.reshape(-1), b.reshape(-1)))
 
 
 def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int,
@@ -353,7 +419,7 @@ def inpainting_mat(op: InpaintingOperator, y, x0_mean, theta0_var, ortho_tf,
         return ortho_tf.masked_cov_matvec(v, theta0_var, mask, sigma_s2)
 
     # the closed-form isotropic solve at the mean variance
-    theta_bar = theta0_var.mean()
+    theta_bar = _batch_mean(theta0_var)
 
     def iso_inverse(v):
         return v / (sigma_s2 + mask * theta_bar)
@@ -379,7 +445,7 @@ def deblur_mat(op: BlurOperator, y, x0_mean, theta0_var, ortho_tf,
         return s2 * u + offt.ifft2(FB * offt.fft2(Cu)).real
 
     # the exact FFT inverse of the isotropic system at the mean variance
-    theta_bar = theta0_var.mean()
+    theta_bar = _batch_mean(theta0_var)
 
     def iso_inverse(u):
         return offt.ifft2(offt.fft2(u) / (s2 + theta_bar * F2B)).real
@@ -425,7 +491,7 @@ def super_resolution_mat(op: SuperResolutionOperator, y, x0_mean, theta0_var,
         return s2 * u + A_fft(cov(AT_fft(u)))
 
     # the exact low-resolution Fourier inverse of the isotropic system
-    theta_bar = theta0_var.mean()
+    theta_bar = _batch_mean(theta0_var)
 
     def iso_inverse(u):
         return offt.ifft2(offt.fft2(u) / (s2 + theta_bar * invW)).real
@@ -449,7 +515,7 @@ def colorization_mat(op: ColorizationOperator, y, x0_mean, theta0_var,
     def matvec(u):
         return s2 * u + cov(op.transpose(u)).mean(dim=1, keepdim=True)
 
-    theta_bar = theta0_var.mean()
+    theta_bar = _batch_mean(theta0_var)
 
     def iso_inverse(u):
         return u / (s2 + theta_bar / 3.0)
@@ -593,7 +659,7 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         state `st` the CG starts from st["u"]."""
         kw = {} if st is None else dict(u0=st["u"], want_state=True)
         if kind == "iso":
-            sv = float(svar.mean()) if torch.is_tensor(svar) else svar
+            sv = float(_batch_mean(svar)) if torch.is_tensor(svar) else svar
             out = mat_solver(operator, y, x0m, sv, ortho_tf, True, cfg, **kw)
         elif kind == "tensor" or sigma < thres:
             out = mat_solver(operator, y, x0m, svar, ortho_tf, False, cfg,
@@ -633,7 +699,7 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         x0m, _, mean_vjp = moments(x, sigma, True)
         x0d = x0m.requires_grad_(True)
         with torch.enable_grad():
-            norm = torch.linalg.vector_norm(y - operator.forward(x0d))
+            norm = _batch_norm(y - operator.forward(x0d))
         g, = torch.autograd.grad(norm, x0d)
         score = mean_vjp(-g, False) * cfg.zeta
         return x0m.detach() + s2(sigma) * score, 0.0, 0, None
@@ -672,13 +738,14 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             x0_mean, _ = uncond_pred(x, sigma)
-            first = -torch.linalg.vector_norm(y - operator.forward(x0_mean))
+            first = -_batch_norm(y - operator.forward(x0_mean))
             second = 0.0
             for eps in eps_list:
                 inc, _ = uncond_pred(x + eps, sigma)
-                second = second - torch.sum((inc - x0_mean) * eps) * s2(sigma)
+                second = second - _batch_sum(
+                    torch.sum((inc - x0_mean) * eps)) * s2(sigma)
             second = second / cfg.num_hutchinson_samples
-            loss = cfg.zeta * first + (cfg.eta / x.numel()) * second
+            loss = cfg.zeta * first + (cfg.eta / _batch_numel(x)) * second
         g, = torch.autograd.grad(loss, x)
         return x0_mean.detach() + s2(sigma) * g, 0.0, 0, None
 

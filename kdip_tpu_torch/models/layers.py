@@ -12,7 +12,7 @@ reference's fp16 torso and `kdip_tpu`'s `_FusedGroupNorm`.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -167,7 +167,10 @@ class Dropout(nn.Module):
     k-diffusion blocks): each value kept with probability 1 - p, a kept
     value divided by 1 - p in x's dtype, the rest 0. The keep mask is
     drawn from `generator` where one is set (`set_dropout_generator`),
-    else from torch's default generator on x's device."""
+    else from torch's default generator on x's device. With `shard` =
+    (rank, world) x is a rank's block of a batch split over world ranks:
+    the mask is drawn for the whole batch and the block kept, so the ranks
+    together drop what one process would."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
@@ -175,6 +178,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate {p} is not in [0, 1)")
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[Tuple[int, int]] = None
 
     @property
     def live(self) -> bool:
@@ -183,8 +187,9 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.live:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < 1.0 - self.p
+        (r, w), n = self.shard or (0, 1), x.shape[0]
+        keep = torch.rand((n * w,) + x.shape[1:], generator=self.generator,
+                          device=x.device)[r * n:(r + 1) * n] < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
     def extra_repr(self) -> str:
@@ -192,13 +197,17 @@ class Dropout(nn.Module):
 
 
 def set_dropout_generator(model: nn.Module,
-                          generator: Optional[torch.Generator]) -> None:
+                          generator: Optional[torch.Generator],
+                          shard: Optional[Tuple[int, int]] = None) -> None:
     """Draws every Dropout mask of `model` from `generator` (None: torch's
-    default generator). Two models of one architecture, each given a
-    generator seeded alike, draw the same masks in the same forward."""
+    default generator), for a rank's block of a batch split over ranks
+    where `shard` = (rank, world) is given. Two models of one
+    architecture, each given a generator seeded alike, draw the same masks
+    in the same forward."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+            m.shard = shard
 
 
 class TimestepEmbedSequential(nn.Sequential):

@@ -3,10 +3,13 @@ port's copy of `kdip_tpu/resample.py`; ref: guided_diffusion/resample.py).
 
 Uniform sampling and loss-second-moment importance sampling, in numpy on
 the host: timesteps and weights come from a `np.random.RandomState`, so
-the port and `kdip_tpu` draw the same `t` and weights from one seed. The
-reference's all_gather of the loss histories (resample.py:83-104) waits
-for the port's scale-out (ROADMAP queue 1, entry 9); in one process the
-local losses are all the losses.
+the port and `kdip_tpu` draw the same `t` and weights from one seed.
+Across the ranks of a process group each rank holds only its block's
+losses: `update_with_local_losses(..., group=)` all-gathers every rank's
+(t, loss) pairs, padded to the largest count, in rank order, as the
+reference does (resample.py:83-104), so the update sees the global batch's
+pairs in the order one process would. Without a group the local losses are
+all the losses.
 """
 
 from __future__ import annotations
@@ -57,7 +60,17 @@ class LossAwareSampler(ScheduleSampler):
     """(ref: resample.py:70-121). update_with_all_losses consumes the
     batch's (t, loss) pairs."""
 
-    def update_with_local_losses(self, local_ts, local_losses):
+    def update_with_local_losses(self, local_ts, local_losses, group=None):
+        if group is not None:
+            import torch
+
+            from .parallel.sharding import all_gather_blocks
+
+            def gather(a, dtype):
+                return torch.cat(all_gather_blocks(
+                    torch.as_tensor(np.asarray(a, dtype)), group)).numpy()
+            local_ts = gather(local_ts, np.int64)
+            local_losses = gather(local_losses, np.float64)
         self.update_with_all_losses(np.asarray(local_ts),
                                     np.asarray(local_losses))
 

@@ -5,7 +5,7 @@ Euler or DPM-Solver++(2M)) over the Karras schedule."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,14 +95,27 @@ def build_posterior_sampler(model_apply: Callable,
                init_noise: Optional[torch.Tensor] = None,
                noise_fn: Optional[Callable] = None,
                probe_fn: Optional[Callable[[int], Sequence[torch.Tensor]]]
-               = None, return_info: bool = False):
+               = None, return_info: bool = False,
+               shard: Optional[Tuple[int, int]] = None):
         """init_noise (standard normal [n, C, H, W]; scaled by sigma_max
         here), noise_fn (the Euler and Heun samplers' churn noise per step,
         see samplers.sample_heun) and probe_fn (stsl's or autoI's probes
         of the k-th guided call, probe_fn(k)) inject the randomness;
         otherwise it comes from `generator`. return_info also returns the
         samplers' info dict. With cg_warm_start every sample carries its
-        own solver state through the trajectory."""
+        own solver state through the trajectory.
+
+        With `shard` = (rank, world) the n samples are a rank's block of a
+        batch of n * world (`parallel.sharding.make_sharded_sampler`):
+        every draw, and the injected init_noise, noise_fn(i) and
+        probe_fn(k), is of the whole batch, in this sampler's order, and
+        the rank keeps its block, so the ranks together draw what one
+        process would."""
+        if shard is not None:
+            init_noise, noise_fn, probe_fn = _block_draws(
+                shard, (n, channels, image_size, image_size), generator,
+                device, init_noise, noise_fn, probe_fn,
+                (n_probes, draw) if n_probes else None)
         denoise = gd.make_condition_denoiser(
             uncond, var_fn, operator, measurement, guidance_cfg, v2=v2,
             with_info=return_info or warm, generator=generator)
@@ -137,6 +150,36 @@ def build_posterior_sampler(model_apply: Callable,
         return out[0] if warm and not return_info else out
 
     return sample
+
+
+def _block_draws(shard, local_shape, generator, device, init_noise,
+                 noise_fn, probe_fn, probes):
+    """(init_noise, noise_fn, probe_fn) of a rank's block: the whole
+    batch's init noise, churn noise per step and probes per guided call
+    ([n * world, C, H, W] each, injected or drawn from `generator` in the
+    unsharded sampler's order; `probes` = (count, draw) or None), cut to
+    the rank's rows."""
+    (r, w), n = shard, local_shape[0]
+    shape = (n * w,) + tuple(local_shape[1:])
+
+    def take(t):
+        return t[r * n:(r + 1) * n]
+
+    def whole(fn=torch.randn):
+        return fn(shape, generator=generator, device=device)
+    whole_noise = noise_fn or (lambda i: whole())
+    whole_probes = probe_fn
+    if probes is not None and probe_fn is None:
+        count, fn = probes
+
+        def whole_probes(k):
+            return [whole(fn) for _ in range(count)]
+
+    def block_probes(k):
+        return [take(p) for p in whole_probes(k)]
+    return (take(whole() if init_noise is None else init_noise),
+            lambda i: take(whole_noise(i)),
+            block_probes if probes is not None else None)
 
 
 def _per_sample(denoise: Callable, with_info: bool) -> Callable:

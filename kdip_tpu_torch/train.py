@@ -22,9 +22,12 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from . import precond
 from .ops.transforms import OrthoTransform
+from .parallel import dist as pdist
+from .parallel.sharding import block
 from .schedules import append_dims
 from .utils import ema_update, seeded_generator
 
@@ -169,7 +172,7 @@ class TrainState:
 
 
 def make_train_step(loss_fn: Callable, sample_density: Callable,
-                    per_sample_map: bool = False) -> Callable:
+                    per_sample_map: bool = False, group=None) -> Callable:
     """step(state, batch, ema_decay, generator=None, sigma=None,
     noise=None) -> the mean loss (a 0-dim tensor, not read on the host).
 
@@ -177,7 +180,13 @@ def make_train_step(loss_fn: Callable, sample_density: Callable,
     from `generator` by sample_density, then the noise, unless injected.
     per_sample_map runs one example at a time, each backward of loss_i / B
     adding into the same gradients: `kdip_tpu`'s scan (train.py:131-144),
-    the same mean with one example's activations alive at a time."""
+    the same mean with one example's activations alive at a time.
+
+    With a process group `group` the step is data-parallel over its ranks
+    (`kdip_tpu`'s step on a dp-sharded batch): batch, sigma and noise are
+    the global batch's, each rank takes its block, and the gradients and
+    the loss are averaged over the ranks in one all_reduce before Adam, so
+    every rank applies the global batch's update."""
     def step(state: TrainState, batch: torch.Tensor, ema_decay: float,
              generator: Optional[torch.Generator] = None,
              sigma: Optional[torch.Tensor] = None,
@@ -190,6 +199,11 @@ def make_train_step(loss_fn: Callable, sample_density: Callable,
                                 device=generator.device, dtype=batch.dtype)
         sigma = sigma.to(batch.device, torch.float32)
         noise = noise.to(batch.device, batch.dtype)
+        if group is not None:
+            r, w = tdist.get_rank(group), tdist.get_world_size(group)
+            batch, sigma, noise = (block(t, r, w)
+                                   for t in (batch, sigma, noise))
+            B = batch.shape[0]
         for p in state.params:
             p.grad = None
         if per_sample_map and B > 1:
@@ -203,9 +217,22 @@ def make_train_step(loss_fn: Callable, sample_density: Callable,
             loss = loss_fn(batch, noise, sigma).mean()
             loss.backward()
             loss = loss.detach()
+        if group is not None:
+            loss = _mean_over_ranks(state.params, loss, group)
         state.apply_gradients(ema_decay)
         return loss
     return step
+
+
+def _mean_over_ranks(params, loss: torch.Tensor, group) -> torch.Tensor:
+    """Every parameter's .grad and the loss averaged over the group's
+    ranks; returns the loss."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    *grads, loss = pdist.mean_over_ranks(grads + [loss.reshape(1)], group)
+    for p, g in zip(params, grads):
+        p.grad = g
+    return loss[0]
 
 
 # ---------------------------------------------------------------------------

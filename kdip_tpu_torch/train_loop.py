@@ -7,6 +7,18 @@ macro step, loss-aware timestep sampling, a chain of EMA rates, the
 gradient noise scale from the microbatch gradients, periodic checkpoints
 and step-parsed resume, and KV logging through `logger`.
 
+Data-parallel under `mesh` (a `parallel.sharding.make_mesh` DeviceMesh or
+a process group): every rank reads the same global batches, makes the
+global microbatch's draws (timesteps, q-sample noise, dropout masks) and
+keeps its block of each microbatch; the float32 gradients and the loss
+terms are averaged over the ranks (one all_reduce a microbatch, after the
+bf16 -> float32 cast), the loss-aware sampler's update gathers every
+rank's (t, loss), and every rank applies the same Adam step and EMAs. So
+W ranks give the one-process loop's numbers, up to the order of float32
+sums. Rank 0 writes the checkpoints and the logger's output; the ranks
+meet at a barrier after each save, and a resume reads on rank 0 and
+broadcasts.
+
 Mixed precision as guided-diffusion's MixedPrecisionTrainer shapes it:
 the model given is the float32 master. With `compute_dtype` (bfloat16 for
 the ADM torso) a copy pre-cast by `weights.precast_inference` (GroupNorm
@@ -41,6 +53,8 @@ import torch
 
 from . import ckpt as ckpt_lib
 from . import logger
+from .parallel import dist as pdist
+from .parallel import sharding
 from .ddpm_sampling import training_losses
 from .diffusion import DiffusionTables
 from .models.layers import set_dropout_generator
@@ -71,8 +85,9 @@ class TrainLoop:
 
     model: the float32 master, called as model(x_t, t) -> raw output (eps
     [+ variance values]); data: an iterator of [B, C, H, W] batches (numpy
-    or tensors), moved to the model's device. `mesh` (data-parallel
-    training) waits for the port's scale-out."""
+    or tensors), moved to the model's device: the global batch, the same
+    on every rank under `mesh` (data-parallel training over its ranks,
+    which must divide batch_size and microbatch; see above)."""
 
     def __init__(self, *, model: torch.nn.Module, tables: DiffusionTables,
                  data, batch_size: int, microbatch: int = -1,
@@ -85,9 +100,16 @@ class TrainLoop:
                  measure_gns: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
                  noise_fn: Optional[Callable] = None):
-        if mesh is not None:
-            raise SystemExit("mesh (data-parallel training) is not ported "
-                             "yet: ROADMAP queue 1, entry 9")
+        self.mesh = mesh
+        self.group = None if mesh is None else sharding.group_of(mesh)
+        self.rank = pdist.get_rank(self.group)
+        self.world = pdist.get_world_size(self.group)
+        mb = microbatch if microbatch > 0 else batch_size
+        if batch_size % self.world or mb % self.world:
+            raise SystemExit(f"batch_size {batch_size} and microbatch {mb} "
+                             f"must divide over the mesh's {self.world} "
+                             "ranks")
+        pdist.sync_params(model, self.group)
         self.model = model
         self.device = next(model.parameters()).device
         self.tables = tables
@@ -160,7 +182,8 @@ class TrainLoop:
         terms (detached) and the gradient of the loss with respect to each
         master parameter, float32, through the compute model as it stands
         (its dropout drawn from self.dropout_generator)."""
-        set_dropout_generator(self.compute, self.dropout_generator)
+        set_dropout_generator(self.compute, self.dropout_generator,
+                              (self.rank, self.world))
         terms = training_losses(self.tables, self.compute, micro, t,
                                 loss_type=self.loss_type,
                                 learn_sigma=self.learn_sigma, noise=noise)
@@ -183,6 +206,16 @@ class TrainLoop:
     def _sq_norm(grads) -> float:
         return float(sum(torch.sum(g * g) for g in grads))
 
+    def _block(self, x):
+        return sharding.block(x, self.rank, self.world)
+
+    def _dumpkvs(self):
+        if self.rank == 0:
+            logger.dumpkvs()
+        else:  # rank 0 writes the logs: the others drop theirs
+            logger.get_current().name2val.clear()
+            logger.get_current().name2cnt.clear()
+
     def run_loop(self, max_steps: Optional[int] = None):
         """(ref: train_util.py:153-178). The DIFFUSION_TRAINING_TEST
         environment variable stops it after the first save, as
@@ -193,7 +226,7 @@ class TrainLoop:
                 break
             self.run_step(batch)
             if self.step % self.log_interval == 0:
-                logger.dumpkvs()
+                self._dumpkvs()
             if self.step % self.save_interval == 0:
                 self.save()
                 if test_mode:
@@ -204,7 +237,8 @@ class TrainLoop:
     def run_step(self, batch):
         """One macro step: the microbatches' gradients, their mean, one
         optimizer update and the EMAs (ref: train_util.py:180-230
-        forward_backward + optimize)."""
+        forward_backward + optimize). Under a mesh the batch is the global
+        one and each rank runs its block of every microbatch."""
         batch = torch.as_tensor(batch).to(self.device, torch.float32)
         self._sync_compute()
         total_grads = None
@@ -215,12 +249,19 @@ class TrainLoop:
             t, weights = self.schedule_sampler.sample(micro.shape[0],
                                                       self.rng)
             noise = self._noise(micro, n_micro)
+            t = self._block(torch.from_numpy(t).to(self.device, torch.int64))
             loss, terms, grads = self.micro_grads(
-                micro, torch.from_numpy(t).to(self.device, torch.int64),
-                torch.from_numpy(weights).to(self.device), noise)
+                self._block(micro), t,
+                self._block(torch.from_numpy(weights).to(self.device)),
+                self._block(noise))
             if isinstance(self.schedule_sampler, LossAwareSampler):
                 self.schedule_sampler.update_with_local_losses(
-                    t, terms["loss"].cpu().numpy())
+                    t.cpu().numpy(), terms["loss"].cpu().numpy(), self.group)
+            logged = {k: terms[k].mean() for k in ("vb", "mse") if k in terms}
+            loss, *grads = pdist.mean_over_ranks(
+                [loss] + grads + list(logged.values()), self.group)
+            grads, logged = grads[:len(self.params)], dict(zip(
+                logged, grads[len(self.params):]))
             if total_grads is None:
                 total_grads = grads
             else:
@@ -230,10 +271,8 @@ class TrainLoop:
             if self.gns is not None:
                 sq_small_sum += self._sq_norm(grads)
             logger.logkv_mean("loss", float(loss))
-            if "vb" in terms:
-                logger.logkv_mean("vb", float(terms["vb"].mean()))
-            if "mse" in terms:
-                logger.logkv_mean("mse", float(terms["mse"].mean()))
+            for k, v in logged.items():
+                logger.logkv_mean(k, float(v))
         grads = [g / n_micro for g in total_grads]
         if self.gns is not None and n_micro > 1:
             gns_val = self.gns.update(sq_small_sum / n_micro,
@@ -259,7 +298,13 @@ class TrainLoop:
 
     def save(self):
         """(ref: train_util.py:232-255): model_N.pt, ema_{rate}_N.pt and
-        opt_N.pt in logdir."""
+        opt_N.pt in logdir, written by rank 0; the ranks meet after it."""
+        if self.rank == 0:
+            self._write_checkpoints()
+        if self.group is not None:
+            pdist.barrier("train_loop_save")
+
+    def _write_checkpoints(self):
         os.makedirs(self.logdir, exist_ok=True)
         ckpt_lib.save_checkpoint(
             os.path.join(self.logdir, f"model_{self.step}.pt"),
@@ -277,17 +322,21 @@ class TrainLoop:
         """(ref: train_util.py:110-151): the params, the optimizer and the
         EMAs saved at the latest step, and the step; the draws restart from
         the seed, as `kdip_tpu`'s do."""
-        model_ckpt = find_resume_checkpoint(self.logdir)
+        def read(path):
+            return pdist.read_if_present(path, ckpt_lib.load_checkpoint,
+                                         self.group)
+        model_ckpt = pdist.broadcast_object(
+            find_resume_checkpoint(self.logdir), self.group)
         if model_ckpt is None:
             return
         step = int(re.search(r"\d+", os.path.basename(model_ckpt)).group())
-        self.model.load_state_dict(ckpt_lib.load_checkpoint(model_ckpt))
-        opt_path = os.path.join(self.logdir, f"opt_{step}.pt")
-        if os.path.exists(opt_path):
-            self.opt.load_state_dict(ckpt_lib.load_checkpoint(opt_path))
+        self.model.load_state_dict(read(model_ckpt))
+        opt = read(os.path.join(self.logdir, f"opt_{step}.pt"))
+        if opt is not None:
+            self.opt.load_state_dict(opt)
         for rate, ema in zip(self.ema_rate, self.ema_models):
-            ema_path = os.path.join(self.logdir, f"ema_{rate}_{step}.pt")
-            if os.path.exists(ema_path):
-                ema.load_state_dict(ckpt_lib.load_checkpoint(ema_path))
+            sd = read(os.path.join(self.logdir, f"ema_{rate}_{step}.pt"))
+            if sd is not None:
+                ema.load_state_dict(sd)
         self.step = step
         logger.log(f"resumed from step {step}")

@@ -243,12 +243,18 @@ def test_sampling_flags_reach_the_sampler(env, tmp_path, flags):
                                   "batch_with_n"])
 def test_refusals(env, tmp_path, case, monkeypatch):
     """What the port does not run exits with a message that says why: --dp
-    names its ROADMAP entry, an orbax directory is refused, --device cuda
-    without a card never falls back to the CPU, --batch-size > 1 needs -n
-    1. (The k-diffusion native models run: test_torch_kdiff_guidance.py.)"""
+    without a process group to join (no launcher's environment) names
+    torchrun, an orbax directory is refused, --device cuda without a card
+    never falls back to the CPU, --batch-size > 1 needs -n 1. (--dp over
+    two ranks: test_torch_parallel_ranks.py; the k-diffusion native models
+    run: test_torch_kdiff_guidance.py.)"""
     logdir = tmp_path / "x"
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "OMPI_COMM_WORLD_SIZE", "SLURM_JOB_ID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
     argv, match = {
-        "dp": (_args(env, logdir, "--dp", "--device", "cpu"), "entry 9"),
+        "dp": (_args(env, logdir, "--dp", "--device", "cpu"),
+               "--dp needs a process group: launch with torchrun"),
         "orbax": (_args(env, logdir, "--device", "cpu",
                         checkpoint="root"), "orbax"),
         "no_card": (_args(env, logdir), "no CUDA card"),

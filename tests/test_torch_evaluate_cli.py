@@ -205,12 +205,18 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("case", ["dp", "orbax", "clip_without_transformers",
                                   "no_card"])
 def test_refusals(env, tmp_path, case, monkeypatch):
-    """What the port does not run exits saying why: --dp names its ROADMAP
-    entry, an orbax directory of weights is refused, --backbone clip
-    without transformers names the package (no other backbone stands in),
-    and --device cuda without a card never falls back to the CPU."""
+    """What the port does not run exits saying why: --dp without a process
+    group to join (no launcher's environment) names torchrun, an orbax
+    directory of weights is refused, --backbone clip without transformers
+    names the package (no other backbone stands in), and --device cuda
+    without a card never falls back to the CPU. (--dp over two ranks:
+    test_torch_parallel_ranks.py.)"""
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "OMPI_COMM_WORLD_SIZE", "SLURM_JOB_ID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
     argv, match = {
-        "dp": (_argv(env, "--dp", "--device", "cpu"), "entry 9"),
+        "dp": (_argv(env, "--dp", "--device", "cpu"),
+               "--dp needs a process group: launch with torchrun"),
         "orbax": (_argv(env, "--backbone", "inception", "--weights",
                         str(tmp_path), "--device", "cpu"), "orbax"),
         "clip_without_transformers": (

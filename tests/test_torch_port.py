@@ -122,7 +122,8 @@ def test_port_sources_import_no_yaml_jax_or_kdip_tpu():
         ("utils.py",), ("tfevents.py",), ("cli", "train_openai.py"),
         ("cli", "analytic_variance.py"), ("evaluation.py",),
         ("profiling.py",), ("models", "inception.py"),
-        ("cli", "evaluate.py"))} <= set(sources)
+        ("cli", "evaluate.py"), ("parallel", "dist.py"),
+        ("parallel", "sharding.py"))} <= set(sources)
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

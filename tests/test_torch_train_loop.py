@@ -467,8 +467,9 @@ def test_checkpoints_resume_and_refusals(jax_run, tmp_path, monkeypatch):
     opt_N.pt at 2 and at the end (3); a new loop resumes from the latest:
     params, optimizer state, EMAs and step bit-equal, its draws restarted
     from the seed as kdip_tpu's are. An orbax directory is refused, and so
-    is a mesh (ROADMAP queue 1, entry 9); DIFFUSION_TRAINING_TEST stops
-    the loop after its first save."""
+    is a mesh without a process group to run it (the mesh over two ranks:
+    test_torch_parallel_ranks.py); DIFFUSION_TRAINING_TEST stops the loop
+    after its first save."""
     tmp = str(tmp_path)
     with P.logger.scoped_configure(dir=tmp + "/l", format_strs=[]):
         loop = _port_loop(jax_run["init"], tmp, save_interval=2,
@@ -496,7 +497,8 @@ def test_checkpoints_resume_and_refusals(jax_run, tmp_path, monkeypatch):
     os.makedirs(os.path.join(tmp, "ck", "model_9"))
     with pytest.raises(SystemExit, match="orbax"):
         _port_loop(jax_run["init"], tmp, resume=True)
-    with pytest.raises(SystemExit, match="entry 9"):
+    with pytest.raises(SystemExit, match="needs an initialized process "
+                                         "group"):
         _port_loop(jax_run["init"], tmp, mesh=object())
     monkeypatch.setenv("DIFFUSION_TRAINING_TEST", "1")
     with P.logger.scoped_configure(dir=tmp + "/l2", format_strs=[]):
