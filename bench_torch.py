@@ -3,13 +3,15 @@
 throughput on one CUDA card, the counterpart of bench.py.
 
     python3 bench_torch.py           # the row KDIP_BENCH_WORKLOAD names
+    python3 bench_torch.py --runs 1  # one timed call instead of three
     python3 bench_torch.py --grid    # every row, RESULTS_GRID_TORCH.json
 
 The workload is bench.py's: the FFHQ-256 ADM UNet (random weights from a
 seed, std 0.02, bf16 torso pre-cast), 1000-step linear DDPM tables, Type-I
 guidance with the row's covariance on the row's operator (configs/),
 50-step stochastic Heun, 4 samples against one measurement. One warm-up
-call, then three timed calls ending in torch.cuda.synchronize(). `build`
+call, then --runs timed calls (3 by default) ending in
+torch.cuda.synchronize(); the JSON line's "runs" says how many. `build`
 makes the workload; chip_smoke.py builds its slices with it too.
 
 Prints ONE JSON line with bench.py's keys. FLOPs per NFE come from
@@ -21,6 +23,7 @@ CPU host (not this card's host), as bench.py does. Without a CUDA card it
 exits non-zero and prints no result.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -50,8 +53,8 @@ ROW_TIMEOUT_S = 2400
 PEAK_BF16_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.4}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# the motion PSF of configs/motion_deblur_config.yaml (drawn with seed 0):
-# the card's machine has no PIL to draw it
+# the motion PSF of configs/motion_deblur_config.yaml (drawn with seed 0),
+# so that a machine without PIL runs that row
 MOTION_PSF = os.path.join(ROOT, "kdip_tpu_torch", "data",
                           "motion_ks61_i0.5_seed0.npy")
 
@@ -95,7 +98,7 @@ def flops_per_nfe(model, dev) -> int:
     return counter.get_total_flops()
 
 
-def main() -> int:
+def main(runs: int = 3) -> int:
     import torch
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA card; the benchmark measures the card "
@@ -107,7 +110,7 @@ def main() -> int:
               f"{sorted(WORKLOADS)}", file=sys.stderr)
         return 2
     result = measure(workload, torch.device("cuda", 0),
-                     torch.cuda.get_device_name(0))
+                     torch.cuda.get_device_name(0), runs)
     if result is None:
         return 1
     print(json.dumps(result), flush=True)
@@ -158,9 +161,10 @@ def build(dev, gcfg, seed: int, op_cfg: dict, scfg=None, v2: bool = False,
     return sampler, (model, tables, op, meas, x_true)
 
 
-def measure(workload: str, dev, name: str):
-    """The workload's result dict on `dev`, the card called `name`; None
-    if the warm-up sample is not finite."""
+def measure(workload: str, dev, name: str, runs: int = 3):
+    """The workload's result dict on `dev`, the card called `name`, from
+    `runs` timed calls after the warm-up; None if the warm-up sample is not
+    finite."""
     import torch
     from kdip_tpu_torch import config, guidance
     op_yaml, cov = WORKLOADS[workload]
@@ -184,13 +188,12 @@ def measure(workload: str, dev, name: str):
         return None
     cg_max_residual = info["cg_max_residual"]
 
-    n_runs = 3
     t0 = time.perf_counter()
-    for i in range(n_runs):
+    for i in range(runs):
         out, info = run(4 + i)
         cg_max_residual = max(cg_max_residual, info["cg_max_residual"])
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / n_runs
+    dt = (time.perf_counter() - t0) / runs
     samples_per_sec = BATCH / dt
 
     flops = flops_per_nfe(model, dev)
@@ -217,8 +220,10 @@ def measure(workload: str, dev, name: str):
         "baseline_source": baseline_source or "no measurement recorded",
         "tflops_sustained": round(tflops, 1),
         "mfu": round(tflops / peak, 4) if peak else None,
-        # the worst CG relative residual of the four runs (tol 1e-4)
+        # the worst CG relative residual of the warm-up and the timed
+        # runs (tol 1e-4)
         "cg_max_residual": round(cg_max_residual, 8),
+        "runs": runs,
         "mfu_method": mfu_method,
         "device": name,
     }
@@ -268,4 +273,13 @@ def grid() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(grid() if "--grid" in sys.argv[1:] else main())
+    ap = argparse.ArgumentParser(description="guided sampling throughput "
+                                 "of kdip_tpu_torch on one CUDA card")
+    ap.add_argument("--grid", action="store_true",
+                    help="every workload, into RESULTS_GRID_TORCH.json")
+    ap.add_argument("--runs", type=int, default=3,
+                    help="timed calls after the warm-up (default 3)")
+    args = ap.parse_args()
+    if args.runs < 1:
+        ap.error("--runs must be at least 1")
+    sys.exit(grid() if args.grid else main(args.runs))

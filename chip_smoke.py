@@ -74,7 +74,7 @@ each printing one JSON line:
    gaussian deblur with Convert (no DWT or Winograd launch), the same
    with the CG warm start (`cg_warm_start`; its CG iterations and ms/NFE
    beside the cold slice's), motion deblur with Convert (the PSF loaded
-   from kdip_tpu_torch/data, as the card has no PIL), 4x super-resolution
+   from kdip_tpu_torch/data, as on a machine without PIL), 4x super-resolution
    with Convert (y is [1, 3, 64, 64]), gaussian deblur with tmpd (a CG
    solve at every NFE; n=1), and gaussian deblur with
    DWT-Var (the fused matvec's no-mask mode, its launches the CG
@@ -116,8 +116,24 @@ each printing one JSON line:
    --resume, which must run no image and reproduce avg_metrics' psnr,
    ssim and lpips bit for bit; it reports the wall time per image, peak
    memory and LPIPS's time per image;
-17. bench_torch: `python3 bench_torch.py` (the default workload) as a
-   subprocess, its JSON line with bench.py's keys;
+16h. aux_modules: the auxiliary modules on the FFHQ Winograd torso at
+   full width (configs/test_ffhq.json, bf16, random
+   weights), cuDNN deterministic: one guided Convert NFE below its
+   threshold under GuidanceConfig.remat_vjp False, True and "conv_dots",
+   the x0 estimates bit-equal and the Winograd launches exact (65 + 55;
+   70 + 110 with remat, which recomputes the forward); ops.tiling modes
+   1 (250 px padded to 256), 2 and 5 (512 px in four 288 px tiles, whose
+   9 px level takes the direct conv; mode 2's quadrants bit-equal to
+   their tiles' own applies) and 3 (the x8 ensemble at 256 px) with the
+   denoiser as `apply`, each mode's launches exactly what its convs' calls
+   asked for; ms and peak memory of each; then the aux ops (DiffPIR's FFT
+   solution at sf 1 and 4, wrap_boundary_liu, shepard_initialize,
+   imresize, fft2c, extract_image_patches) on the card against the CPU
+   within AUX_REL, and the composite Winograd conv of two channel parts
+   (impl "cuda" against "plain");
+17. bench_torch: `python3 bench_torch.py --runs BENCH_RUNS` (the default
+   workload, one timed call after the warm-up) as a subprocess, its JSON
+   line with bench.py's keys and "runs";
 18. uncond_cli: the unconditional-sampling CLI
    (`kdip_tpu_torch.cli.sample_uncond.main`, in-process) at full width
    (configs/test_ffhq.json, a guided-diffusion .pt of seeded random
@@ -229,7 +245,7 @@ each printing one JSON line:
    SCALE_OUT_SIGMA_MAX); the gloo collectives' times. Each part's seconds
    and each rank's peak memory;
 21. the `kernels` line: per kernel, its launches in its slices (phases 3,
-   3a, 4a, 7, 10, 12, 16-16g, 18-20 and 20a), its error, its time against its
+   3a, 4a, 7, 10, 12, 16-16h, 18-20 and 20a), its error, its time against its
    plain version's, its bound and, for the Winograd kernels, cuDNN's
    direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
    replaces and an empty kernel's device time beside it.
@@ -237,7 +253,8 @@ each printing one JSON line:
 Depth cuts to pay for 20a: the per-sample slices of phases 3, 5
 and 7 run N_SAMPLES = 2 (their batched twins BATCHED_N = 4), autoI
 AUTOI_N = 1 (PERF.md §4). The tmpd slice stays at Heun-50: at Heun-25 its
-samples are not finite with random weights.
+samples are not finite with random weights. The cut that pays for 16h:
+bench_torch times BENCH_RUNS = 1 call after its warm-up, not 3.
 
 Each slice's line has its ms/NFE, samples/s, cg_max_residual, CG
 iterations, CG warnings (counted, not printed) and DWT launches; the
@@ -365,6 +382,27 @@ TMPD_N = 1
 BLUR_SR_N = 1
 TYPE_II_DCT_N = 2
 AUTOI_N = 1
+# bench_torch's timed calls after its warm-up (`bench_torch.py --runs`; 3
+# when it runs alone). One pays for the aux_modules phase (5.8-8.6 s): it
+# keeps the subprocess, the warm-up and the key check, and drops two of
+# the phase's four n=4 Heun-50 calls, which only repeat the measurement
+# that the slices already make. On an H100 80GB HBM3 at 700 W the phase
+# took 139.1 s against 220.6 s at 3 runs, and 102.3 against 151.1 s on a
+# faster host, the whole script 2.3 s and 27.5 s below its parent's
+# (PERF.md §5)
+BENCH_RUNS = 1
+# aux_modules (phase 16h): the guided Convert NFE below its 0.2 threshold
+# under each remat_vjp; tiling's denoiser sigma and its cases (at 256 px:
+# mode 1 on 250 px padded to a multiple of 32, modes 2 and 5 on 512 px in
+# 288 px tiles, whose UNet levels reach 9 px, mode 3 on 256 px); the aux
+# ops on the card against the CPU: float32 FFTs of 256 x 256 (cuFFT
+# against pocketfft) and products in another order, within AUX_REL of each
+# output's largest magnitude
+AUX_REMAT = (False, True, "conv_dots")
+AUX_NFE_SIGMA = 0.1
+AUX_TILE_SIGMA = 0.5
+AUX_MODULO = 32
+AUX_REL = 1e-4
 BLUR_NFE_SIGMA = 0.5            # phase 11's NFEs
 TMPD_THETA_SIGMAS = (0.5, 2.0, 10.0, 40.0)  # phase 11's tmpd variances
 STSL_NFE_SIGMA = 0.5            # phase 14's stsl NFE
@@ -784,16 +822,19 @@ def guided_nfes_below(thres: float, steps: int = STEPS,
     return sum(s < thres for s in calls)
 
 
-def winograd_per_nfe(model):
+def winograd_per_nfe(model, remat: bool = False):
     """Winograd launches per guided NFE at B=1, from the model's blocks: the
     forward runs the plain kernel in each down-block's in_conv and the fused
     one in every other 3x3 conv of a ResBlock; the vjp runs the plain kernel
-    once per conv (dx). FFHQ-256 (30 blocks, 5 down): 65 plain + 55 fused."""
+    once per conv (dx). FFHQ-256 (30 blocks, 5 down): 65 plain + 55 fused.
+    With `remat` (remat_vjp True or "conv_dots", neither of which keeps a
+    Winograd output) the backward runs the forward once more: 70 + 110."""
     from kdip_tpu_torch.models.layers import ResBlock
     blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
     down = sum(b.down for b in blocks)
-    return {"winograd_conv3x3": down + 2 * len(blocks),
-            "winograd_conv3x3_fused": 2 * len(blocks) - down}
+    k = 2 if remat else 1
+    return {"winograd_conv3x3": k * down + 2 * len(blocks),
+            "winograd_conv3x3_fused": k * (2 * len(blocks) - down)}
 
 
 def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
@@ -2759,11 +2800,283 @@ def phase_no_scale_shift_winograd(dev):
     return dwt_launches, launches["kernel"]
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block, then the settings as
+    they were (the remat and tiling comparisons are bit for bit)."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+@contextlib.contextmanager
+def winograd_call_log(model):
+    """Counts each call of the model's Winograd-capable convs as it runs,
+    by the conv's own routing rule (`Conv2d._eligible` of the call's
+    input): an eligible call launches the plain kernel, or the fused one
+    with a prologue; any other takes the direct conv ("direct", and
+    "direct_px" the heights it ran at). Forward calls only."""
+    from kdip_tpu_torch.models.layers import Conv2d
+    log = {"winograd_conv3x3": 0, "winograd_conv3x3_fused": 0, "direct": 0,
+           "direct_px": []}
+
+    def hook(mod, args, kwargs):
+        x = args[0]
+        pro = args[1] if len(args) > 1 else kwargs.get("prologue")
+        if mod._eligible(x):
+            log["winograd_conv3x3" if pro is None
+                else "winograd_conv3x3_fused"] += 1
+        else:
+            log["direct"] += 1
+            if x.shape[-2] not in log["direct_px"]:
+                log["direct_px"].append(x.shape[-2])
+    hooks = [m.register_forward_pre_hook(hook, with_kwargs=True)
+             for m in model.modules() if isinstance(m, Conv2d)
+             and m.winograd and m.kernel_size == (3, 3)]
+    try:
+        yield log
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|, both taken to the CPU."""
+    import torch
+    got, want = (torch.as_tensor(t).detach().cpu() for t in (got, want))
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp(min=1e-30)).item()
+
+
+def aux_ops_card_vs_cpu(dev, size: int):
+    """(c) of aux_modules: the aux ops on the card against the port's CPU
+    result on the same inputs, at `size` px: DiffPIR's pre_calculate and
+    data_solution for the gaussian PSF at sf 1 and 4, wrap_boundary_liu
+    (to the next FFT size past size + 16), shepard_initialize (p=0.5
+    mask), imresize x1/4 and x4, fft2c / ifft2c and extract_image_patches
+    (3x3, same, stride 1). Each within AUX_REL of its output's largest
+    magnitude; the patches, which only move values, bit-equal."""
+    import torch
+    from kdip_tpu_torch.ops import deblur, dps_tools, fft, image_utils, inpaint
+    from kdip_tpu_torch.ops.kernels import gaussian_kernel
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(91)
+    img = torch.rand(1, 3, size, size, generator=g)
+    x = torch.randn(1, 3, size, size, generator=g)
+    mask = (torch.rand(size, size, generator=g) > 0.5).float()
+    psf = torch.from_numpy(gaussian_kernel(61, 3.0).astype(np.float32))
+    pad = int(deblur.opt_fft_size([size + 16])[0])
+    cases = {}
+    for sf in (1, 4):
+        y = img[..., ::sf, ::sf].contiguous()
+        cases[f"pre_calculate_sf{sf}"] = (
+            lambda d, y=y, sf=sf: torch.cat([t.reshape(-1) for t in (
+                fft.pre_calculate(y.to(d), psf.to(d), sf))]))
+        cases[f"data_solution_sf{sf}"] = (
+            lambda d, y=y, sf=sf: fft.data_solution(
+                x.to(d), *fft.pre_calculate(y.to(d), psf.to(d), sf), 0.3, sf))
+    cases["wrap_boundary_liu"] = lambda d: deblur.wrap_boundary_liu(
+        img[0].to(d), (pad, pad))
+    cases["shepard_initialize"] = lambda d: inpaint.shepard_initialize(
+        (img[0] * mask).to(d), mask.to(d))
+    for scale in (0.25, 4.0):
+        cases[f"imresize_x{scale}"] = (
+            lambda d, scale=scale: image_utils.imresize(img.to(d), scale))
+    z = torch.stack([x, img], -1)
+    cases["fft2c"] = lambda d: dps_tools.fft2c(z.to(d))
+    cases["ifft2c"] = lambda d: dps_tools.ifft2c(z.to(d))
+    cases["extract_image_patches"] = lambda d: dps_tools.extract_image_patches(
+        img.to(d), (3, 3), (1, 1), (1, 1))
+    res = {}
+    for name, fn in cases.items():
+        got, want = fn(dev), fn(cpu)
+        _sync(dev)
+        err = _rel_err(got, want)
+        ok = (bool(torch.equal(got.cpu(), want))
+              if name == "extract_image_patches" else err <= AUX_REL)
+        res[name] = {"shape": list(got.shape), "rel_err": err, "ok": ok,
+                     "device": str(got.device)}
+        if not ok or got.device.type != dev.type:
+            raise AssertionError(f"aux op {name} on {dev}: {res[name]}")
+    return res
+
+
+def phase_aux_modules(dev):
+    """The auxiliary modules on the FFHQ Winograd torso at full width
+    (configs/test_ffhq.json, winograd=True, bf16 pre-cast, random weights
+    from a seed; bench_torch.build, inpainting), cuDNN deterministic:
+
+    (a) remat: one guided Convert NFE below its threshold (sigma
+    AUX_NFE_SIGMA) with GuidanceConfig.remat_vjp False, True and
+    "conv_dots": the x0 estimate of each bit-equal to False's; the
+    Winograd launches of each exactly winograd_per_nfe(model, remat)
+    (65 + 55, then 70 + 110); each run's ms and peak GiB.
+    (b) tiling (ops.tiling) with the uncond denoiser at AUX_TILE_SIGMA as
+    `apply`: mode 1 on (size - 6) px padded to AUX_MODULO, equal to the
+    apply of the padded image, cropped; mode 2 on 2 x size px (four tiles
+    of (size / 32 + 1) * 32 px), each stitched quadrant bit-equal to its
+    tile's own apply; mode 3 on size px (8 dihedral applies); mode 5 (one
+    split) on 2 x size px. The launches of each mode exactly what the
+    convs' calls asked for as they ran (`winograd_call_log`), an odd level
+    (9 px in a 288 px tile) on the direct conv; ms and peak GiB of each.
+    (c) `aux_ops_card_vs_cpu`, and module 11's winograd_conv3x3_parts on
+    two channel parts, impl "cuda" against impl "plain" on the card (a
+    kernel comparison, outside the launch count).
+
+    Returns the launch counts (DWT, Winograd) of (a) and (b)."""
+    import torch
+    from bench_torch import build
+    from kdip_tpu_torch import guidance as gd
+    from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import tiling
+    from kdip_tpu_torch.ops import winograd as Wg
+    cfg = load_op_config("inpainting_config.yaml")
+    gcfg = gd.GuidanceConfig(guidance="I", x0_cov_type="convert")
+    _, (model, tables, op, meas, x_true) = build(dev, gcfg, seed=93,
+                                                 op_cfg=cfg, winograd=True)
+    size = model.image_size
+    rec = {"phase": "aux_modules", "px": size}
+    D.reset_launch_counts()
+    Wg.reset_launch_counts()
+    total = {k: 0 for k in Wg.launch_counts}
+
+    def take(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with deterministic_cudnn():
+        # (a) remat_vjp
+        g = torch.Generator(device=dev).manual_seed(94)
+        x = x_true + AUX_NFE_SIGMA * torch.randn(x_true.shape, generator=g,
+                                                 device=dev)
+        remat, outs = {}, {}
+        for spec in AUX_REMAT:
+            c = gd.GuidanceConfig(guidance="I", x0_cov_type="convert",
+                                  remat_vjp=spec)
+            uncond, var_fn = gd.make_openai_uncond(model, tables, c)
+            den = gd.make_condition_denoiser(uncond, var_fn, op, meas, c)
+            den(x, AUX_NFE_SIGMA)  # warm-up
+            Wg.reset_launch_counts()
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            outs[spec] = den(x, AUX_NFE_SIGMA)
+            _sync(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = dict(Wg.launch_counts)
+            take(launches)
+            want = winograd_per_nfe(model, remat=spec is not False)
+            remat[str(spec)] = {
+                "ms": ms, "peak_gib": _peak_gib(dev),
+                "winograd_launches": launches, "expected": want,
+                "bit_equal_to_False": bool(torch.equal(outs[spec],
+                                                       outs[False]))}
+            if (launches != want if _cuda(dev) else sum(launches.values())) \
+                    or not remat[str(spec)]["bit_equal_to_False"]:
+                raise AssertionError(f"aux_modules remat {spec!r}: "
+                                     f"{remat[str(spec)]}")
+        rec["remat"] = remat
+
+        # (b) tiling
+        uncond, _ = gd.make_openai_uncond(model, tables, gcfg)
+
+        def apply(t):
+            with torch.no_grad():
+                return uncond(t, AUX_TILE_SIGMA)[0]
+        g = torch.Generator(device=dev).manual_seed(95)
+        big = torch.rand(1, 3, 2 * size, 2 * size, generator=g,
+                         device=dev) * 2 - 1
+        cases = {1: (big[..., :size - 6, :size - 6],
+                     dict(modulo=AUX_MODULO)),
+                 2: (big, dict(refield=32, min_size=size)),
+                 3: (big[..., :size, :size], {}),
+                 5: (big, dict(refield=32, min_size=size))}
+        tiles_rec = {}
+        for mode, (inp, kw) in cases.items():
+            Wg.reset_launch_counts()
+            _reset_peak(dev)
+            with winograd_call_log(model) as log:
+                t0 = time.perf_counter()
+                out = tiling.tiled_inference(apply, inp, mode, **kw)
+                _sync(dev)
+                ms = 1e3 * (time.perf_counter() - t0)
+            launches = dict(Wg.launch_counts)
+            take(launches)
+            want = {k: log[k] for k in launches}
+            r = {"in_px": list(inp.shape[-2:]), "out": list(out.shape),
+                 "ms": ms, "peak_gib": _peak_gib(dev),
+                 "winograd_launches": launches, "expected": want,
+                 "direct_convs": log["direct"],
+                 "direct_px": log["direct_px"],
+                 "finite": bool(torch.isfinite(out).all())}
+            if mode == 1:
+                padded = tiling.replication_pad_to_modulo(inp, AUX_MODULO)
+                r["padded_px"] = list(padded.shape[-2:])
+                r["bit_equal"] = bool(torch.equal(
+                    out, apply(padded)[..., :size - 6, :size - 6]))
+            if mode == 2:
+                h = inp.shape[-1]
+                tiles = tiling.split_tiles(h, h, 32)
+                r["tile_px"] = [tiles[0][0].stop - tiles[0][0].start] * 2
+                eq = []
+                for q, (rows, cols) in enumerate(tiles):
+                    own = apply(inp[..., rows, cols])
+                    top, left = q < 2, q % 2 == 0
+                    hh = h // 2
+                    ys = slice(0, hh) if top else slice(hh, h)
+                    xs = slice(0, hh) if left else slice(hh, h)
+                    oy = slice(0, hh) if top else slice(-(h - hh), None)
+                    ox = slice(0, hh) if left else slice(-(h - hh), None)
+                    eq.append(bool(torch.equal(out[..., ys, xs],
+                                               own[..., oy, ox])))
+                r["quadrants_bit_equal"] = eq
+                r["bit_equal"] = all(eq)
+            tiles_rec[mode] = r
+            ok = r["finite"] and r.get("bit_equal", True) and (
+                launches == want if _cuda(dev)
+                else not sum(launches.values()))
+            if mode in (2, 5):
+                ok = ok and r["direct_convs"] > 0
+            if not ok:
+                raise AssertionError(f"aux_modules tiling mode {mode}: {r}")
+        rec["tiling"] = tiles_rec
+    dwt_launches = dict(D.launch_counts)
+    rec["winograd_launches"] = dict(total)
+    rec["dwt_launches"] = dwt_launches
+
+    # (c) the aux ops, card against CPU; the composite Winograd conv
+    rec["ops_card_vs_cpu"] = aux_ops_card_vs_cpu(dev, size)
+    rec["ops_rel_tol"] = AUX_REL
+    if _cuda(dev):
+        xw, w, a, b = wino_inputs(dev, 1, 192, 128, size // 8, size // 8, 96)
+        parts = (xw[:, :128], xw[:, 128:])
+        for tag, pro in (("plain", None), ("fused", (a, b))):
+            got = Wg.winograd_conv3x3_parts(parts, w, impl="cuda",
+                                            prologue=pro)
+            want = Wg.winograd_conv3x3_parts(parts, w, impl="plain",
+                                             prologue=pro)
+            rec[f"winograd_parts_{tag}"] = wino_compare(
+                got, want, f"winograd_conv3x3_parts {tag}")
+    emit(rec)
+    if sum(dwt_launches.values()):
+        raise AssertionError(f"aux_modules launched the DWT: {dwt_launches}")
+    return dwt_launches, dict(total)
+
+
 def phase_bench_torch(timeout_s: int = 600):
     """`python3 bench_torch.py` (the default workload) as a subprocess; its
     JSON line, which must carry bench.py's keys, becomes this phase's."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"),
+                        "--runs", str(BENCH_RUNS)],
                        capture_output=True, text=True, timeout=timeout_s,
                        cwd=ROOT)
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
@@ -2772,8 +3085,10 @@ def phase_bench_torch(timeout_s: int = 600):
                              f"{r.stderr[-2000:]}")
     res = json.loads(lines[0])
     keys = {"metric", "value", "unit", "vs_baseline", "baseline_source",
-            "tflops_sustained", "mfu", "cg_max_residual", "mfu_method"}
-    if not keys <= res.keys() or not res["value"] > 0:
+            "tflops_sustained", "mfu", "cg_max_residual", "mfu_method",
+            "runs"}
+    if not keys <= res.keys() or not res["value"] > 0 \
+            or res["runs"] != BENCH_RUNS:
         raise AssertionError(f"bench_torch.py printed {res}")
     emit({"phase": "bench_torch", "wall_s": time.perf_counter() - t0,
           "result": res})
@@ -4484,6 +4799,9 @@ def main() -> int:
                         ("no_scale_shift_winograd",
                          phase_no_scale_shift_winograd)):
         by_slice[name], wino_by_slice[name] = timed(name, phase, dev)
+    torch.cuda.empty_cache()
+    by_slice["aux_modules"], wino_by_slice["aux_modules"] = timed(
+        "aux_modules", phase_aux_modules, dev)
     torch.cuda.empty_cache()
     timed("bench_torch", phase_bench_torch)
     with tempfile.TemporaryDirectory() as tmp:

@@ -3,10 +3,10 @@
 k_diffusion/utils.py:274-297, k_diffusion/augmentation.py:13-86).
 
 `FolderOfImages` is a sorted recursive glob that returns `(arr,)`, arr a
-float32 [C, H, W] array in [-1, 1]. The card's machine has no PIL, so an
-8-bit non-interlaced PNG of colour type 0, 2, 4 or 6 (grey, RGB, grey +
-alpha, RGBA) is decoded here: zlib, the five PNG row filters and numpy,
-the counterpart of the PNG path of `kdip_tpu`'s native loader
+float32 [C, H, W] array in [-1, 1]. So that a machine without PIL can
+read it, an 8-bit non-interlaced PNG of colour type 0, 2, 4 or 6 (grey,
+RGB, grey + alpha, RGBA) is decoded here: zlib, the five PNG row filters
+and numpy, the counterpart of the PNG path of `kdip_tpu`'s native loader
 (`kdip_tpu/native/loader.cc`). Under `size=` such a PNG is resized here
 too, by `resize_lanczos`, which reproduces Pillow's 8-bit LANCZOS
 (Resample.c) bit for bit as loader.cc:49-195 does. Every other file goes

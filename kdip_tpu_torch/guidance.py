@@ -40,12 +40,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as tdist
+import torch.utils.checkpoint as tcp
 
 from . import diffusion as diff
 from . import precond
@@ -84,7 +86,14 @@ class GuidanceConfig:
     iterate (`kdip_tpu` guidance.py:82-92; off, as the reference's scipy
     CG always starts from zero). zeta (dps, stsl), lambda_ (diffpir), eta
     and num_hutchinson_samples (stsl) are the modes' step sizes and probe
-    count; num_probes is autoI's Hutchinson probe count and SLQ's."""
+    count; num_probes is autoI's Hutchinson probe count and SLQ's.
+    remat_vjp runs the denoiser's forward again in the backward of the
+    guidance vjp (`kdip_tpu` guidance.py:96-131; the same numbers, one more
+    forward): True under `torch.utils.checkpoint`, "conv_dots" keeping
+    only the conv and matmul outputs (see `remat_pred`); off by default.
+    One region holds the whole UNet call, so the backward rebuilds all of
+    its activations at once: on the H100 neither setting lowered the peak
+    memory, and both were slower (PERF.md §6)."""
     guidance: str = "I"
     x0_cov_type: str = "convert"
     mle_sigma_thres: float = 0.2
@@ -99,6 +108,14 @@ class GuidanceConfig:
     cg_warn: bool = True
     cg_warm_start: bool = False
     num_probes: int = 8
+    remat_vjp: Any = False
+
+    def __post_init__(self):
+        if not any(self.remat_vjp is v for v in (False, True)) \
+                and self.remat_vjp != "conv_dots":
+            # jax's other checkpoint_policies names have no torch counterpart
+            raise ValueError(f"remat_vjp takes False, True or 'conv_dots', "
+                             f"got {self.remat_vjp!r}")
 
 
 def resolved_cg_maxiter(cfg: GuidanceConfig) -> int:
@@ -108,6 +125,50 @@ def resolved_cg_maxiter(cfg: GuidanceConfig) -> int:
 def _f32(v) -> float:
     """A host scalar rounded to float32, as `kdip_tpu` computes its scalars."""
     return float(np.float32(v))
+
+
+# The ops whose outputs remat_vjp="conv_dots" keeps: convolutions and
+# matrix products (`kdip_tpu`'s conv_general_dilated and dot_general).
+_CONV_DOTS = ("convolution", "mm", "bmm", "addmm", "baddbmm",
+              "_scaled_dot_product_flash_attention",
+              "_scaled_dot_product_efficient_attention",
+              "_scaled_dot_product_cudnn_attention",
+              "_scaled_dot_product_flash_attention_for_cpu")
+
+
+def _conv_dots_policy(ctx, op, *args, **kwargs):
+    name = op.overloadpacket.__name__
+    return (tcp.CheckpointPolicy.MUST_SAVE if name in _CONV_DOTS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_pred(uncond_pred: Callable, spec) -> Callable:
+    """uncond_pred(x, sigma) under GuidanceConfig.remat_vjp's recompute:
+    itself for False; for True the whole call under a non-reentrant
+    `torch.utils.checkpoint`, which the backward runs again; for
+    "conv_dots" a selective checkpoint that keeps the outputs of the aten
+    convolutions and matrix products and recomputes the rest. The
+    Winograd kernels (ops.winograd) launch from autograd Functions through
+    ctypes, which no aten op covers, so "conv_dots" recomputes their
+    outputs as True does: a backward launches each Winograd forward kernel
+    once more, as under `kdip_tpu`, whose policy sees a pallas_call and
+    not a conv_general_dilated.
+
+    The region is the whole UNet call, so its backward rebuilds every
+    activation of the region before it backpropagates through them: the
+    peak memory is no-remat's at any batch size. On the H100 (FFHQ
+    Winograd torso, B=1) neither setting saved time or memory: both were
+    slower than no remat in every run, "conv_dots" 2.1-2.4x, and the peak
+    did not move (PERF.md §5-6)."""
+    if spec is False:
+        return uncond_pred
+    kw = {} if spec is True else dict(context_fn=functools.partial(
+        tcp.create_selective_checkpoint_contexts, _conv_dots_policy))
+
+    def pred(x, sigma):
+        return tcp.checkpoint(uncond_pred, x, sigma, use_reentrant=False,
+                              **kw)
+    return pred
 
 
 def mle_var(sigma):
@@ -624,6 +685,8 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
                              f"form (no CG); cg_warm_start has nothing to "
                              f"warm")
     thres = cfg.mle_sigma_thres
+    vjp_pred = remat_pred(uncond_pred, cfg.remat_vjp)
+    sac = cfg.remat_vjp == "conv_dots"
 
     def moments(x, sigma, grad: bool):
         """(x0_mean detached, aux, mean_vjp): mean_vjp(ct, retain) is the
@@ -635,11 +698,19 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
             return x0_mean, aux, None
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            x0_mean, aux = uncond_pred(x, sigma)
+            x0_mean, aux = vjp_pred(x, sigma)
+        graph = [(x, x0_mean)]
 
         def mean_vjp(ct, retain=True):
-            return torch.autograd.grad(x0_mean, x, grad_outputs=ct,
-                                       retain_graph=retain)[0]
+            if not graph:
+                # a selective-checkpoint region takes one backward: a
+                # later vjp (tmpd's second) runs the region again
+                xg = x.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    graph.append((xg, vjp_pred(xg, sigma)[0]))
+            xg, out = graph.pop() if sac else graph[0]
+            return torch.autograd.grad(out, xg, grad_outputs=ct,
+                                       retain_graph=retain and not sac)[0]
         return x0_mean.detach(), aux, mean_vjp
 
     def solver_var(aux, sigma, mean_vjp, x_shape):

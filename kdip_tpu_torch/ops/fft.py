@@ -1,7 +1,9 @@
 """FFT-domain blur and SR math over NCHW tensors (port of
-`kdip_tpu/ops/fft.py:23-119`; ref: condition/diffpir_utils/utils_sisr.py):
-PSF -> OTF, the OTF's circular convolution, s-fold up/down-sampling and
-the aliasing-block `splits`. On the card the transforms are cuFFT's, through
+`kdip_tpu/ops/fft.py`; ref: condition/diffpir_utils/utils_sisr.py):
+PSF -> OTF, the OTF's circular convolution, s-fold up/down-sampling, the
+aliasing-block `splits`, and DiffPIR's FFT quadruple (`pre_calculate`),
+closed-form data solution (`data_solution`), wrap-blur degradation and
+half-pixel shift. On the card the transforms are cuFFT's, through
 torch.fft; they stay complex-to-complex, as the reference's are.
 
 OTFs are [H, W] complex64 and broadcast over [B, C, H, W].
@@ -95,3 +97,67 @@ def downsample(x: torch.Tensor, sf: int = 3) -> torch.Tensor:
     if sf == 1:
         return x
     return x[..., ::sf, ::sf]
+
+
+def pre_calculate(y: torch.Tensor, psf: torch.Tensor, sf: int):
+    """The FFT quadruple the sampler's iterations reuse
+    (ref: utils_sisr.py:79-96): y [B, C, h, w], the low-resolution (or,
+    at sf 1, same-size) measurement, psf [kh, kw] on y's device. Returns
+    (FB, FBC, F2B, FBFy): FB, FBC and F2B [H, W] = [h sf, w sf], FBFy
+    [B, C, H, W] complex."""
+    h, w = y.shape[-2:]
+    FB = psf_to_otf(psf, (h * sf, w * sf))
+    FBC = torch.conj_physical(FB)
+    F2B = torch.abs(FB) ** 2
+    FBFy = FBC * fft2(upsample(y, sf=sf))
+    return FB, FBC, F2B, FBFy
+
+
+def data_solution(x: torch.Tensor, FB, FBC, F2B, FBFy, alpha,
+                  sf: int) -> torch.Tensor:
+    """DiffPIR's closed-form proximal step (ref: utils_sisr.py:65-76):
+    argmin_z |y - S H z|^2 + alpha |z - x|^2, diagonalised by the FFT.
+    alpha is clipped below at 1e-2."""
+    alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device
+                            ).clamp(min=1e-2)
+    FR = FBFy + fft2(alpha * x)
+    FBR = splits(FB * FR, sf).mean(-1)
+    invW = splits(torch.broadcast_to(F2B, x.shape).to(FB.dtype), sf).mean(-1)
+    invWBR = FBR / (invW + alpha)
+    FCBinvWBR = FBC * invWBR.repeat(1, 1, sf, sf)
+    return ifft2((FR - FCBinvWBR) / alpha).real
+
+
+def classical_degradation(x: torch.Tensor, k, sf: int = 3) -> torch.Tensor:
+    """The classical SR degradation, circular (wrap) blur then s-fold
+    subsampling (ref: utils_sisr.py:99-113, scipy.ndimage.convolve with
+    mode='wrap'), as a product in the Fourier domain: x [..., H, W],
+    k [kh, kw] numpy. psf_to_otf's corner placement and roll centre the
+    kernel as ndimage.convolve does, for odd and even sizes."""
+    psf = torch.as_tensor(np.asarray(k), dtype=x.dtype, device=x.device)
+    return apply_otf(x, psf_to_otf(psf, x.shape[-2:]))[..., ::sf, ::sf]
+
+
+def shift_pixel(x: np.ndarray, sf: int, upper_left: bool = True) -> np.ndarray:
+    """The half-pixel grid shift that aligns bicubic SR kernels
+    (ref: utils_sisr.py:117-143; its scipy interp2d(kind='linear') as a
+    bilinear resample, axis by axis), numpy float64 on [H, W(, C)]."""
+    x = np.array(x, dtype=np.float64)
+    h, w = x.shape[:2]
+    shift = (sf - 1) * 0.5
+    xv = np.arange(w, dtype=np.float64)
+    yv = np.arange(h, dtype=np.float64)
+    x1 = np.clip(xv + (shift if upper_left else -shift), 0, w - 1)
+    y1 = np.clip(yv + (shift if upper_left else -shift), 0, h - 1)
+
+    def interp_axis(arr, coords, axis):
+        i0 = np.floor(coords).astype(int)
+        i1 = np.minimum(i0 + 1, arr.shape[axis] - 1)
+        t = coords - i0
+        a0 = np.take(arr, i0, axis=axis)
+        a1 = np.take(arr, i1, axis=axis)
+        tshape = [1] * arr.ndim
+        tshape[axis] = len(coords)
+        return a0 + (a1 - a0) * t.reshape(tshape)
+
+    return interp_axis(interp_axis(x, y1, 0), x1, 1)

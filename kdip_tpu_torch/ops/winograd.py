@@ -4,7 +4,9 @@ pair that the ResBlocks of a `winograd=True` ADM torso run.
 
 Port of `kdip_tpu/ops/experimental/winograd_pallas.py` (`_wino_kernel`, its
 plain and `prologue=True` forms, and their custom VJPs) and of
-`kernel_transform` (`kdip_tpu/ops/experimental/winograd.py:40-64`). A
+`kdip_tpu/ops/experimental/winograd.py` (`kernel_transform`, the composite
+`winograd_conv3x3_jnp` over channel parts, and its `impl` dispatcher:
+`winograd_conv3x3_parts` here). A
 stride-1, same-padded 3x3 conv is computed per 2x2 output tile as
 Y = A^T [(G g G^T) . (B^T d B)] A:
 
@@ -359,4 +361,46 @@ def winograd_conv3x3(x: torch.Tensor, weight: torch.Tensor,
         y = _WinogradConvFused.apply(x, a, b, weight, v, v_rot, conv)
     if bias is not None:
         y = y + bias.to(y.dtype)[:, None, None]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# The composite conv over channel parts, and its `impl` dispatcher
+# (`kdip_tpu/ops/experimental/winograd.py:96-155`)
+# ---------------------------------------------------------------------------
+
+WINOGRAD_IMPLS = ("cuda", "plain")
+
+
+def winograd_conv3x3_parts(x, weight: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None,
+                           dtype=None, impl: str = "cuda",
+                           prologue: Prologue = None) -> torch.Tensor:
+    """The 3x3 stride-1 same-padded conv by Winograd F(2,3), no autograd,
+    of NCHW x [B, C, H, W] (H, W even) or of a tuple of channel parts
+    whose channels sum to the weight's C (`kdip_tpu`'s split-skip input).
+    weight [F, C, 3, 3]; the conv runs in `dtype` (default: the first
+    part's), the result is cast back to the first part's dtype and the
+    bias added in it. prologue=(a, b), [B, C] float32, convolves
+    silu(x*a + b).
+
+    The parts are concatenated along C: the float32 accumulation over C
+    is their sum in transform space. impl "cuda" launches the kernel
+    (bfloat16 or float16, CUDA tensors; anything else raises), impl
+    "plain" runs the plain PyTorch version on any device. Any other impl
+    raises."""
+    if impl not in WINOGRAD_IMPLS:
+        raise ValueError(f"impl must be one of {WINOGRAD_IMPLS}, got "
+                         f"{impl!r}")
+    parts = x if isinstance(x, tuple) else (x,)
+    out_dtype = parts[0].dtype
+    dtype = dtype or out_dtype
+    xc = torch.cat([p.to(dtype) for p in parts], 1).contiguous()
+    pro = None if prologue is None else tuple(
+        t.to(torch.float32).contiguous() for t in prologue)
+    conv = winograd_conv3x3_cuda if impl == "cuda" else winograd_conv3x3_plain
+    y = conv(xc, kernel_transform(weight, dtype), pro)
+    y = y.to(out_dtype)
+    if bias is not None:
+        y = y + bias.to(out_dtype)[:, None, None]
     return y

@@ -1,6 +1,7 @@
-"""Posterior sampling API (PyTorch port of `kdip_tpu/sampling_api.py:25-148`):
+"""Posterior sampling API (PyTorch port of `kdip_tpu/sampling_api.py`):
 build the guided denoiser for a measurement and run a Karras sampler (Heun,
-Euler or DPM-Solver++(2M)) over the Karras schedule."""
+Euler or DPM-Solver++(2M)) over the Karras schedule; `posterior_sample`
+builds and calls it once."""
 
 from __future__ import annotations
 
@@ -150,6 +151,24 @@ def build_posterior_sampler(model_apply: Callable,
         return out[0] if warm and not return_info else out
 
     return sample
+
+
+def posterior_sample(model_apply: Callable, tables: diff.DiffusionTables,
+                     operator, measurement: Measurement,
+                     generator: Optional[torch.Generator] = None,
+                     guidance_cfg: Optional[gd.GuidanceConfig] = None,
+                     sampler_cfg: Optional[SamplerConfig] = None,
+                     n: int = 1, init_noise: Optional[torch.Tensor] = None,
+                     noise_fn: Optional[Callable] = None, **kw):
+    """One-shot wrapper (`kdip_tpu` sampling_api.py:151-159):
+    build_posterior_sampler(**kw), then one call on `measurement` with n
+    samples. The randomness comes from `generator` (`kdip_tpu`'s key), or
+    from injected `init_noise` and `noise_fn` as in that call."""
+    sampler = build_posterior_sampler(
+        model_apply, tables, operator, guidance_cfg or gd.GuidanceConfig(),
+        sampler_cfg or SamplerConfig(), **kw)
+    return sampler(measurement, n=n, generator=generator,
+                   init_noise=init_noise, noise_fn=noise_fn)
 
 
 def _block_draws(shard, local_shape, generator, device, init_noise,

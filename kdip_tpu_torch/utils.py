@@ -1,6 +1,10 @@
-"""Training utilities: the EMA and its warmup, LR schedules, sigma sample
-densities and the CSV logger (PyTorch port of `kdip_tpu/utils.py:76-208,
-290-301`; ref: k_diffusion/utils.py:85-311, k_diffusion/config.py:110-136).
+"""Training utilities: the precision helpers, the EMA and its warmup, LR
+schedules, sigma sample densities, image <-> array conversions, the
+checked download and the CSV logger (PyTorch port of `kdip_tpu/utils.py`;
+ref: guided_diffusion/fp16_util.py, k_diffusion/utils.py:16-311,
+k_diffusion/config.py:110-136). `kdip_tpu`'s `enable_compilation_cache`
+(XLA's persistent cache) has no counterpart: nothing here is compiled by
+XLA, and the CUDA kernels are built once a checkout (ops/_build.py).
 
 Each density is a map from its uniform or normal draws to sigma
 (`*_from`), beside a `rand_*` that makes those draws from a
@@ -27,6 +31,100 @@ def seeded_generator(device, *entropy: int) -> torch.Generator:
     state = np.random.SeedSequence(list(entropy)).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+# ---------------------------------------------------------------------------
+# Precision (guided_diffusion/fp16_util.py's counterparts)
+# ---------------------------------------------------------------------------
+
+def _tensors(params) -> Dict[str, torch.Tensor]:
+    """A module's state dict, or the mapping itself."""
+    if isinstance(params, torch.nn.Module):
+        return params.state_dict()
+    return dict(params)
+
+
+def cast_params(params, dtype) -> Dict[str, torch.Tensor]:
+    """A copy of a module's state dict (or of a dict of tensors) with every
+    floating tensor cast to dtype and the others kept (the reference's
+    convert_module_to_f16, fp16_util.py:15-32)."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in _tensors(params).items()}
+
+
+def master_param_update(master_params, updates) -> Dict[str, torch.Tensor]:
+    """The float32 master-weight step: master + update, both taken to
+    float32, for each key (fp16_util.py MixedPrecisionTrainer:148-236)."""
+    master, upd = _tensors(master_params), _tensors(updates)
+    return {k: m.to(torch.float32) + upd[k].to(torch.float32)
+            for k, m in master.items()}
+
+
+def n_params(params) -> int:
+    """The number of parameters of a module, or the elements of a dict of
+    tensors (ref: k_diffusion/utils.py:48-50)."""
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    return sum(v.numel() for v in params.values())
+
+
+# ---------------------------------------------------------------------------
+# Images and files (ref: k_diffusion/utils.py:16-31, 53-65)
+# ---------------------------------------------------------------------------
+
+def from_pil_image(img) -> torch.Tensor:
+    """A PIL image or a uint8 [H, W(, C)] array -> float32 [C, H, W] in
+    [-1, 1] (ref: k_diffusion/utils.py:16-22); np.asarray reads either, so
+    no PIL is imported."""
+    x = np.asarray(img, dtype=np.float32) / 255.0
+    if x.ndim == 2:
+        x = x[:, :, None]
+    return torch.from_numpy(np.ascontiguousarray(
+        (x * 2.0 - 1.0).transpose(2, 0, 1)))
+
+
+def to_uint8(x) -> np.ndarray:
+    """A [-1, 1] [C, H, W] (or [1, C, H, W], or [H, W]) tensor or array ->
+    uint8 [H, W, C] ([H, W] for one channel), rounded as `kdip_tpu`'s
+    to_pil_image rounds it (ref: k_diffusion/utils.py:24-31)."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu().to(torch.float32).numpy()
+    x = np.asarray(x)
+    if x.ndim == 4:
+        if x.shape[0] != 1:
+            raise ValueError(f"one image, got a batch of {x.shape[0]}")
+        x = x[0]
+    if x.ndim == 3:
+        x = x[0] if x.shape[0] == 1 else x.transpose(1, 2, 0)
+    return np.uint8(np.round((np.clip(x, -1.0, 1.0) + 1.0) * 127.5))
+
+
+def to_pil_image(x):
+    """to_uint8(x) as a PIL image (ref: k_diffusion/utils.py:24-31). Needs
+    PIL; `to_uint8` is the form without it."""
+    from PIL import Image
+    return Image.fromarray(to_uint8(x))
+
+
+def download_file(path, url, digest=None) -> Path:
+    """Fetches `url` to `path` unless the file is there, then checks its
+    SHA-256 against `digest` where one is given (ref:
+    k_diffusion/utils.py:53-65); a mismatch raises OSError."""
+    import hashlib
+    import shutil
+    import urllib.request
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if not path.exists():
+        with urllib.request.urlopen(url) as response, \
+                open(path, "wb") as f:
+            shutil.copyfileobj(response, f)
+    if digest is not None:
+        file_digest = hashlib.sha256(path.read_bytes()).hexdigest()
+        if digest != file_digest:
+            raise OSError(f"digest mismatch for {path} (downloaded from "
+                          f"{url})")
+    return path
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@ def test_workloads_and_metric_names_match_bench():
     assert bench_torch._metric_name(bench.DEFAULT_WORKLOAD) == bench.METRIC
 
 
-@pytest.mark.parametrize("argv", [[], ["--grid"]], ids=["row", "grid"])
+@pytest.mark.parametrize("argv", [[], ["--grid"], ["--runs", "1"]],
+                         ids=["row", "grid", "runs"])
 def test_no_cuda_exits_nonzero_without_a_result(argv):
     """With no card visible the benchmark exits non-zero, says why on
     stderr and prints no JSON line: it never measures the CPU."""

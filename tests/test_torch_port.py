@@ -123,7 +123,10 @@ def test_port_sources_import_no_yaml_jax_or_kdip_tpu():
         ("cli", "analytic_variance.py"), ("evaluation.py",),
         ("profiling.py",), ("models", "inception.py"),
         ("cli", "evaluate.py"), ("parallel", "dist.py"),
-        ("parallel", "sharding.py"))} <= set(sources)
+        ("parallel", "sharding.py"), ("ops", "tiling.py"),
+        ("ops", "inpaint.py"), ("ops", "deblur.py"),
+        ("ops", "image_utils.py"), ("ops", "dps_tools.py"),
+        ("ops", "conv_mxu.py"))} <= set(sources)
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
