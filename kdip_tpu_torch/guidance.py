@@ -17,7 +17,10 @@ Differences of form from `kdip_tpu`, not of result:
   `if`s, and the closed-form branch never computes the covariance tensors;
 - the CG loop runs on the host, testing its stopping rule after every
   iteration, which reads the residual back from the device; a solve that
-  ends above tolerance warns (cg_warn) from the same read;
+  ends above tolerance warns (cg_warn) from the same read. Each such
+  blocking read counts in `host_read_counts` and is a
+  `profiling.span("guidance.host_read")`, inside the spans of the guided
+  call (`guidance.nfe`), its UNet forward, vjp and solve;
 - the likelihood score is `torch.autograd.grad` of x0_mean at x, and
   tmpd's variance a first `autograd.grad` on the retained graph; where no
   vjp is needed (Type-II but with tmpd, diffpir, uncond) the UNet runs
@@ -57,6 +60,7 @@ from .operators import (BlurOperator, ColorizationOperator,
 from .ops import fft as offt
 from .ops.transforms import OrthoTransform, ot_covariance
 from .parallel import dist as pdist
+from .profiling import span
 
 # How each covariance reaches the solve (ref: kdip_tpu guidance.py:585-589,
 # the reference's theta0_var.numel() == 1 dispatch): "switch" - CG with the
@@ -320,6 +324,16 @@ def make_kdiff_v2_uncond(model_apply: Callable, cfg: GuidanceConfig,
 
 _BATCH_GROUP = None
 
+# the solves' blocking device-to-host reads since the last
+# reset_host_read_counts(), by site: the CG's stopping test each iteration,
+# its exit residual, the iso solve's mean variance
+host_read_counts = {"cg_residual": 0, "cg_exit": 0, "iso_mean": 0}
+
+
+def reset_host_read_counts() -> None:
+    for k in host_read_counts:
+        host_read_counts[k] = 0
+
 
 @contextlib.contextmanager
 def batch_group(group):
@@ -380,6 +394,13 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _batch_sum(torch.dot(a.reshape(-1), b.reshape(-1)))
 
 
+def _above(rs: torch.Tensor, atol2: torch.Tensor) -> bool:
+    """The CG's stopping test rs > atol2, read on the host."""
+    host_read_counts["cg_residual"] += 1
+    with span("guidance.host_read"):
+        return bool(rs > atol2)
+
+
 def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int,
                       M=None, x0: Optional[torch.Tensor] = None):
     """Conjugate gradients from x0 (default 0) in the update order of
@@ -400,7 +421,7 @@ def _cg_with_residual(matvec, b: torch.Tensor, tol: float, maxiter: int,
     gamma = _vdot(r, z)
     rs = _vdot(r, r) if preconditioned else gamma
     k = 0
-    while k < maxiter and bool(rs > atol2):
+    while k < maxiter and _above(rs, atol2):
         Ap = matvec(p)
         alpha = gamma / _vdot(p, Ap)
         x = x + alpha * p
@@ -427,7 +448,9 @@ def _cg(matvec, b, cfg: GuidanceConfig, M=None, x0=None):
                                         x0)
     bs = atol2 / torch.tensor(cfg.cg_tol, dtype=rs.dtype).square()
     rel = torch.sqrt(rs / bs.clamp(min=torch.finfo(rs.dtype).tiny))
-    rel, above = torch.stack([rel, (rs > atol2).to(rel.dtype)]).tolist()
+    host_read_counts["cg_exit"] += 1
+    with span("guidance.host_read"):
+        rel, above = torch.stack([rel, (rs > atol2).to(rel.dtype)]).tolist()
     if cfg.cg_warn and above:
         warnings.warn(f"CG did not converge in {maxiter} iters: "
                       f"|r|/|b| = {np.float32(rel)}", RuntimeWarning,
@@ -693,11 +716,11 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         vjp of x0_mean at x, None where grad is False (the forward then
         runs under no_grad)."""
         if not grad:
-            with torch.no_grad():
+            with torch.no_grad(), span("guidance.forward"):
                 x0_mean, aux = uncond_pred(x, sigma)
             return x0_mean, aux, None
         x = x.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with torch.enable_grad(), span("guidance.forward"):
             x0_mean, aux = vjp_pred(x, sigma)
         graph = [(x, x0_mean)]
 
@@ -709,8 +732,10 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
                 with torch.enable_grad():
                     graph.append((xg, vjp_pred(xg, sigma)[0]))
             xg, out = graph.pop() if sac else graph[0]
-            return torch.autograd.grad(out, xg, grad_outputs=ct,
-                                       retain_graph=retain and not sac)[0]
+            with span("guidance.vjp"):
+                return torch.autograd.grad(
+                    out, xg, grad_outputs=ct,
+                    retain_graph=retain and not sac)[0]
         return x0_mean.detach(), aux, mean_vjp
 
     def solver_var(aux, sigma, mean_vjp, x_shape):
@@ -729,15 +754,21 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         rel_resid, iterations, the warm-start state or None); with a
         state `st` the CG starts from st["u"]."""
         kw = {} if st is None else dict(u0=st["u"], want_state=True)
-        if kind == "iso":
-            sv = float(_batch_mean(svar)) if torch.is_tensor(svar) else svar
-            out = mat_solver(operator, y, x0m, sv, ortho_tf, True, cfg, **kw)
-        elif kind == "tensor" or sigma < thres:
-            out = mat_solver(operator, y, x0m, svar, ortho_tf, False, cfg,
-                             **kw)
-        else:
-            out = mat_solver(operator, y, x0m, mle_var(sigma), ortho_tf,
-                             True, cfg, **kw)
+        with span("guidance.solve"):
+            if kind == "iso":
+                sv = svar
+                if torch.is_tensor(svar):
+                    host_read_counts["iso_mean"] += 1
+                    with span("guidance.host_read"):
+                        sv = float(_batch_mean(svar))
+                out = mat_solver(operator, y, x0m, sv, ortho_tf, True, cfg,
+                                 **kw)
+            elif kind == "tensor" or sigma < thres:
+                out = mat_solver(operator, y, x0m, svar, ortho_tf, False,
+                                 cfg, **kw)
+            else:
+                out = mat_solver(operator, y, x0m, mle_var(sigma), ortho_tf,
+                                 True, cfg, **kw)
         return out if st is not None else out + (None,)
 
     def s2(sigma):
@@ -780,8 +811,9 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         the vjp scaled by it."""
         x0m, _, mean_vjp = moments(x, sigma, True)
         x0_var = mle_var(sigma)
-        mat, resid, iters = mat_solver(operator, y, x0m, x0_var, ortho_tf,
-                                       True, cfg)
+        with span("guidance.solve"):
+            mat, resid, iters = mat_solver(operator, y, x0m, x0_var,
+                                           ortho_tf, True, cfg)
         return (x0m + s2(sigma) * (mean_vjp(mat, False) * x0_var),
                 resid, iters, None)
 
@@ -790,8 +822,9 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         lambda_."""
         x0m, _, _ = moments(x, sigma, False)
         x0_var = _f32(np.float32(sigma) ** 2 / np.float32(cfg.lambda_))
-        mat, resid, iters = mat_solver(operator, y, x0m, x0_var, ortho_tf,
-                                       True, cfg)
+        with span("guidance.solve"):
+            mat, resid, iters = mat_solver(operator, y, x0m, x0_var,
+                                           ortho_tf, True, cfg)
         return x0m + mat * x0_var, resid, iters, None
 
     def stsl(x, sigma, eps_list, st=None):
@@ -848,9 +881,10 @@ def make_condition_denoiser(uncond_pred: Callable, x0_var_fn: Callable,
         # the +mle modes: Type-I below mle_sigma_thres, the base mode above
         fn = (type_I if guidance in MLE_MODES and sigma < thres
               else impls[base])
-        out, resid, iters, state = fn(x, sigma, probes,
-                                      solver_state if warm else None)
-        out = out.clamp(-1, 1)
+        with span("guidance.nfe"):
+            out, resid, iters, state = fn(x, sigma, probes,
+                                          solver_state if warm else None)
+            out = out.clamp(-1, 1)
         if not with_info:
             return out
         info = {"cg_resid": resid, "cg_iters": iters}

@@ -1,18 +1,26 @@
 """Profiling and timing harness (PyTorch port of `kdip_tpu/profiling.py`).
 
 `trace` records a torch.profiler trace (CPU and, with a card, CUDA
-activity) and writes it as a Chrome trace; `timeit`, `samples_per_second`
-and `scan_timeit` time on the host clock and end every timed region with
-`torch.cuda.synchronize()` and a scalar read back, since CUDA launches
-return before the device is done.
+activity) and writes it as a Chrome trace; `timeit` times on the host
+clock and ends its timed region with `torch.cuda.synchronize()` and a
+scalar read back, since CUDA launches return before the device is done.
+
+`span(name)` marks a stretch of the program's host work (a sampler step,
+a guided NFE, its UNet forward, vjp and solve, a blocking read of a
+device result). The span recorder is off until a caller switches it on
+with `record_spans(True)`; then each span appends a `SpanRecord` of
+`time.perf_counter_ns()` at its enter and exit, and `take_spans()` hands
+the list over. Nothing of it reaches the device: a span adds no launch,
+no synchronisation and no read.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Callable
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -70,31 +78,100 @@ def timeit(fn: Callable, *args, iters: int = 10, warmup: int = 1,
     return (time.perf_counter() - t0) / iters
 
 
-def scan_timeit(step_fn: Callable, x0, iters: int = 20) -> float:
-    """Seconds per step of x <- step_fn(x), `iters` steps back to back with
-    one synchronisation at the end, after one warm-up run of the same
-    steps. `kdip_tpu`'s version times one compiled `lax.scan`, a single
-    program; here every step's eager launches are issued from the host and
-    counted in the time."""
-    def run():
-        x = x0
-        for _ in range(iters):
-            x = step_fn(x)
-        return x
-
-    _sync(run())
-    t0 = time.perf_counter()
-    _sync(run())
-    return (time.perf_counter() - t0) / iters
+class SpanRecord(NamedTuple):
+    """One recorded span. Times are `time.perf_counter_ns()`; `parent` and
+    `request` index the list `take_spans` returns (-1: none). A request
+    span (`span(name, request=True)`, one batched solve) is its own
+    request; every span inside it carries its index."""
+    name: str
+    start_ns: int
+    end_ns: Optional[int]       # None for a span still open when taken
+    parent: int
+    request: int
 
 
-def samples_per_second(sample_fn: Callable, batch: int, *args,
-                       iters: int = 3, **kwargs) -> float:
-    """End-to-end throughput of sample_fn(*args, **kwargs), which makes
-    `batch` samples a call, after one warm-up call."""
-    _sync(sample_fn(*args, **kwargs))
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = sample_fn(*args, **kwargs)
-    _sync(out)
-    return batch * iters / (time.perf_counter() - t0)
+class _NoSpan:
+    """What `span` returns while the recorder is off: one shared object
+    that does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _Recorder:
+    """The spans of one recording: entered on `thread` alone, kept as
+    [name, start_ns, end_ns, parent, request] lists, `open` the indices
+    of the spans entered and not yet left."""
+    __slots__ = ("thread", "records", "open")
+
+    def __init__(self):
+        self.thread = threading.get_ident()
+        self.records: List[list] = []
+        self.open: List[int] = []
+
+
+class _Span:
+    __slots__ = ("rec", "name", "request", "index")
+
+    def __init__(self, rec: _Recorder, name: str, request: bool):
+        self.rec, self.name, self.request = rec, name, request
+
+    def __enter__(self):
+        rec = self.rec
+        if threading.get_ident() != rec.thread:
+            self.index = -1         # another thread's work: not recorded
+            return None
+        i = len(rec.records)
+        parent = rec.open[-1] if rec.open else -1
+        request = i if self.request else (
+            rec.records[parent][4] if parent >= 0 else -1)
+        self.index = i
+        rec.open.append(i)
+        rec.records.append([self.name, time.perf_counter_ns(), None,
+                            parent, request])
+        return None
+
+    def __exit__(self, *exc):
+        if self.index >= 0:
+            self.rec.records[self.index][2] = time.perf_counter_ns()
+            self.rec.open.pop()
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_recording: Optional[_Recorder] = None   # the recorder while it is on
+_kept: Optional[_Recorder] = None        # the last one, until taken
+
+
+def span(name: str, request: bool = False):
+    """A context manager marking the block as the span `name`; with
+    `request`, the block is one request of the program's caller. While
+    the recorder is off it is one shared object that does nothing."""
+    rec = _recording
+    if rec is None:
+        return _NO_SPAN
+    return _Span(rec, name, request)
+
+
+def record_spans(on: bool) -> None:
+    """Switches the span recorder on, with a new empty list that records
+    the spans of the calling thread, or off, keeping the list for
+    `take_spans`."""
+    global _recording, _kept
+    _recording = _Recorder() if on else None
+    if on:
+        _kept = _recording
+
+
+def take_spans() -> List[SpanRecord]:
+    """The spans of the last recording, in the order they were entered,
+    and the recorder off; the list is given up (a second call returns
+    [])."""
+    global _kept
+    rec, _kept = _kept, None
+    record_spans(False)
+    return [] if rec is None else [SpanRecord(*r) for r in rec.records]

@@ -18,6 +18,10 @@ for the CG warm start (GuidanceConfig.cg_warm_start): each guided call
 starts from the state the last one returned, the corrector from the
 predictor's (`kdip_tpu` samplers.py:48-66).
 
+Euler, Heun and DPM++(2M) mark each step as a
+`profiling.span("samplers.step")`, and the churn's draw as
+`samplers.noise`.
+
 Noise is injectable: churn and per-step draws through `noise_fn(step)`,
 the ancestral and SDE samplers' through `noise_sampler(sigma,
 sigma_next)`; otherwise it is drawn from `generator` (the SDE samplers
@@ -35,6 +39,7 @@ import torch
 
 from .autoi import rademacher
 from .brownian import BrownianTreeNoiseSampler
+from .profiling import span
 from .schedules import get_ancestral_step, to_d
 
 F32 = np.float32
@@ -89,8 +94,9 @@ def _churn(x, i, sig, gammas, s_noise, noise_fn, generator):
     `noise_fn(step)` (standard normal, x's shape) when given, else from
     `generator`."""
     sigma, gamma = sig[i], gammas[i]
-    eps = (noise_fn(i) if noise_fn is not None else torch.randn(
-        x.shape, generator=generator, device=x.device, dtype=x.dtype))
+    with span("samplers.noise"):
+        eps = (noise_fn(i) if noise_fn is not None else torch.randn(
+            x.shape, generator=generator, device=x.device, dtype=x.dtype))
     sigma_hat = sigma * (gamma + np.float32(1))
     if gamma > 0:
         bump = np.sqrt(max(sigma_hat ** 2 - sigma ** 2, np.float32(0)))
@@ -110,10 +116,11 @@ def sample_euler(denoise: Callable, x: torch.Tensor, sigmas: torch.Tensor,
     gammas = _churn_gammas(sig, s_churn, s_tmin, s_tmax)
     call = _Calls(denoise, return_info, solver_state)
     for i in range(len(sig) - 1):
-        x, sigma_hat = _churn(x, i, sig, gammas, np.float32(s_noise),
-                              noise_fn, generator)
-        d = to_d(x, float(sigma_hat), call(x, float(sigma_hat)))
-        x = x + d * float(sig[i + 1] - sigma_hat)
+        with span("samplers.step"):
+            x, sigma_hat = _churn(x, i, sig, gammas, np.float32(s_noise),
+                                  noise_fn, generator)
+            d = to_d(x, float(sigma_hat), call(x, float(sigma_hat)))
+            x = x + d * float(sig[i + 1] - sigma_hat)
     return call.finish(x)
 
 
@@ -130,17 +137,19 @@ def sample_heun(denoise: Callable, x: torch.Tensor, sigmas: torch.Tensor,
     gammas = _churn_gammas(sig, s_churn, s_tmin, s_tmax)
     call = _Calls(denoise, return_info, solver_state)
     for i in range(len(sig) - 1):
-        sigma_next = sig[i + 1]
-        x, sigma_hat = _churn(x, i, sig, gammas, np.float32(s_noise),
-                              noise_fn, generator)
-        d = to_d(x, float(sigma_hat), call(x, float(sigma_hat)))
-        dt = float(sigma_next - sigma_hat)
-        if sigma_next == 0:
-            x = x + d * dt
-        else:
-            x_2 = x + d * dt
-            d_2 = to_d(x_2, float(sigma_next), call(x_2, float(sigma_next)))
-            x = x + (d + d_2) / 2 * dt
+        with span("samplers.step"):
+            sigma_next = sig[i + 1]
+            x, sigma_hat = _churn(x, i, sig, gammas, np.float32(s_noise),
+                                  noise_fn, generator)
+            d = to_d(x, float(sigma_hat), call(x, float(sigma_hat)))
+            dt = float(sigma_next - sigma_hat)
+            if sigma_next == 0:
+                x = x + d * dt
+            else:
+                x_2 = x + d * dt
+                d_2 = to_d(x_2, float(sigma_next),
+                           call(x_2, float(sigma_next)))
+                x = x + (d + d_2) / 2 * dt
     return call.finish(x)
 
 
@@ -157,16 +166,17 @@ def sample_dpmpp_2m(denoise: Callable, x: torch.Tensor, sigmas: torch.Tensor,
         t = -np.log(sig)            # t of sigma 0 is inf: expm1(-h) = -1
     old = None
     for i in range(len(sig) - 1):
-        denoised = call(x, float(sig[i]))
-        h = t[i + 1] - t[i]
-        ratio, decay = float(sig[i + 1] / sig[i]), float(-np.expm1(-h))
-        if i == 0 or sig[i + 1] == 0:
-            x = ratio * x + decay * denoised
-        else:
-            r = (t[i] - t[i - 1]) / h
-            a, b = float(one + one / (2 * r)), float(one / (2 * r))
-            x = ratio * x + decay * (a * denoised - b * old)
-        old = denoised
+        with span("samplers.step"):
+            denoised = call(x, float(sig[i]))
+            h = t[i + 1] - t[i]
+            ratio, decay = float(sig[i + 1] / sig[i]), float(-np.expm1(-h))
+            if i == 0 or sig[i + 1] == 0:
+                x = ratio * x + decay * denoised
+            else:
+                r = (t[i] - t[i - 1]) / h
+                a, b = float(one + one / (2 * r)), float(one / (2 * r))
+                x = ratio * x + decay * (a * denoised - b * old)
+            old = denoised
     return call.finish(x)
 
 

@@ -15,6 +15,7 @@ from . import guidance as gd
 from . import samplers, schedules
 from .autoi import rademacher
 from .operators import Measurement
+from .profiling import span
 
 SAMPLERS = {"heun": samplers.sample_heun, "euler": samplers.sample_euler,
             "dpmpp_2m": samplers.sample_dpmpp_2m}
@@ -111,44 +112,50 @@ def build_posterior_sampler(model_apply: Callable,
         every draw, and the injected init_noise, noise_fn(i) and
         probe_fn(k), is of the whole batch, in this sampler's order, and
         the rank keeps its block, so the ranks together draw what one
-        process would."""
-        if shard is not None:
-            init_noise, noise_fn, probe_fn = _block_draws(
-                shard, (n, channels, image_size, image_size), generator,
-                device, init_noise, noise_fn, probe_fn,
-                (n_probes, draw) if n_probes else None)
-        denoise = gd.make_condition_denoiser(
-            uncond, var_fn, operator, measurement, guidance_cfg, v2=v2,
-            with_info=return_info or warm, generator=generator)
-        mapped = (sampler_cfg.per_sample_map and n > 1
-                  and measurement.y.shape[0] == 1)
-        batch = 1 if mapped else n
-        shape = (batch, channels, image_size, image_size)
-        state = None
-        if warm:
-            # n states of batch 1 under the per-sample loop, as kdip_tpu's
-            # lax.map slices one stacked state (sampling_api.py:97-111)
-            state = gd.init_solver_state(operator, shape, device)
+        process would. The call is one request span,
+        `profiling.span("sampling_api.sample", request=True)`."""
+        with span("sampling_api.sample", request=True):
+            if shard is not None:
+                init_noise, noise_fn, probe_fn = _block_draws(
+                    shard, (n, channels, image_size, image_size), generator,
+                    device, init_noise, noise_fn, probe_fn,
+                    (n_probes, draw) if n_probes else None)
+            denoise = gd.make_condition_denoiser(
+                uncond, var_fn, operator, measurement, guidance_cfg, v2=v2,
+                with_info=return_info or warm, generator=generator)
+            mapped = (sampler_cfg.per_sample_map and n > 1
+                      and measurement.y.shape[0] == 1)
+            batch = 1 if mapped else n
+            shape = (batch, channels, image_size, image_size)
+            state = None
+            if warm:
+                # n states of batch 1 under the per-sample loop, as
+                # kdip_tpu's lax.map slices one stacked state
+                # (sampling_api.py:97-111)
+                state = gd.init_solver_state(operator, shape, device)
+                if mapped:
+                    state = [gd.init_solver_state(operator, shape, device)
+                             for _ in range(n)]
             if mapped:
-                state = [gd.init_solver_state(operator, shape, device)
-                         for _ in range(n)]
-        if mapped:
-            denoise = _per_sample(denoise, return_info or warm)
-        if n_probes:
-            denoise = _shared_probes(denoise, probe_fn or (
-                lambda k: [draw(shape, generator=generator, device=device)
-                           for _ in range(n_probes)]))
-        if init_noise is None:
-            init_noise = torch.randn((n, channels, image_size, image_size),
-                                     generator=generator, device=device)
-        x = init_noise.to(device) * sampler_cfg.sigma_max
-        if sampler_cfg.sampler == "dpmpp_2m":
-            return sampler_fn(denoise, x, sigmas, return_info=return_info)
-        out = sampler_fn(denoise, x, sigmas, noise_fn=noise_fn,
-                         generator=generator,
-                         return_info=return_info or warm,
-                         solver_state=state, **kw)
-        return out[0] if warm and not return_info else out
+                denoise = _per_sample(denoise, return_info or warm)
+            if n_probes:
+                denoise = _shared_probes(denoise, probe_fn or (
+                    lambda k: [draw(shape, generator=generator,
+                                    device=device)
+                               for _ in range(n_probes)]))
+            if init_noise is None:
+                init_noise = torch.randn(
+                    (n, channels, image_size, image_size),
+                    generator=generator, device=device)
+            x = init_noise.to(device) * sampler_cfg.sigma_max
+            if sampler_cfg.sampler == "dpmpp_2m":
+                return sampler_fn(denoise, x, sigmas,
+                                  return_info=return_info)
+            out = sampler_fn(denoise, x, sigmas, noise_fn=noise_fn,
+                             generator=generator,
+                             return_info=return_info or warm,
+                             solver_state=state, **kw)
+            return out[0] if warm and not return_info else out
 
     return sample
 
