@@ -53,11 +53,17 @@ each printing one JSON line:
    prologue, at [1,128,256,256]->128, [1,1024,8,8]->512, a C and F that
    are not multiples of 16, B=2, and shapes that reach every launch
    configuration, and through autograd (dx, da, db);
+6a. kernels_groupnorm: each GroupNorm kernel (ops.groupnorm) at the
+   cells' 256 px sites against its plain version (GN_TOL: the 16-bit
+   forward within a bfloat16 ulp, the float32 head's at float32's own
+   spacing, gx with an incoming gradient of x plus noise, so that the
+   gradient through the statistics is as large as gx), timed beside its
+   bytes bound;
 7. slice, Convert with the Winograd torso (`--winograd`): the V1 ADMUNet
    built by `config.make_openai_model` from configs/test_ffhq.json with
    winograd=True, the same guidance and sampler; the Winograd launch counts
    are reset just before and read just after, and must be 65 plain + 55
-   fused per guided NFE;
+   fused per guided NFE, the GroupNorm launches groupnorm_per_nfe's;
 8. one guided NFE below Convert's threshold three ways on the same
    weights: the kernels, their plain versions, and the direct cuDNN torso,
    compared; the kernel run is traced for the device's busy share, its
@@ -248,7 +254,13 @@ each printing one JSON line:
    3a, 4a, 7, 10, 12, 16-16h, 18-20 and 20a), its error, its time against its
    plain version's, its bound and, for the Winograd kernels, cuDNN's
    direct conv, at the slice's hottest shape; for the fused matvec, the six-launch chain it
-   replaces and an empty kernel's device time beside it.
+   replaces and an empty kernel's device time beside it; for the GroupNorm
+   kernels, phase 6a's figures at the hottest site of each form and the
+   launches of every phase that launched one; then the
+   `groupnorm_launches` line: each phase's GroupNorm launches against
+   the GroupNormLedger's prediction (every ADM torso call on the card, its
+   sites' forward launches, and their backward launches once a backward
+   reaches its outputs), every phase but 6a held to it exactly.
 
 Depth cuts to pay for 20a: the per-sample slices of phases 3, 5
 and 7 run N_SAMPLES = 2 (their batched twins BATCHED_N = 4), autoI
@@ -322,6 +334,12 @@ CLI_KDIFF_IMAGES = 1
 IMAGENET_WINO_PER_NFE = {"winograd_conv3x3": 89,
                          "winograd_conv3x3_fused": 79}
 FFHQ_WINO_PER_NFE = {"winograd_conv3x3": 65, "winograd_conv3x3_fused": 55}
+# Its GroupNorm launches per guided NFE (groupnorm_per_nfe derives them):
+# 101 GroupNorm32 sites, the statistics alone in the 79 that feed a fused
+# conv, the full kernel in the other 22, each once forward and once in the
+# vjp (the count tests/test_torch_groupnorm.py holds the cell's model to)
+IMAGENET_GN_PER_NFE = {"groupnorm_fwd": 22, "groupnorm_stats_fwd": 79,
+                       "groupnorm_bwd": 22, "groupnorm_stats_bwd": 79}
 # cli_kdiff_v2_dwt's image_v2 config: no image_v2 config ships in the
 # repo, so these widths stand in for a published one, taken from the
 # repo's FFHQ ADM (channels 128, 128, 256, 256, 512, 512; two layers a
@@ -837,6 +855,114 @@ def winograd_per_nfe(model, remat: bool = False):
             "winograd_conv3x3_fused": k * (2 * len(blocks) - down)}
 
 
+def groupnorm_per_nfe(model, remat: bool = False):
+    """GroupNorm launches per guided NFE (one UNet forward and its vjp) of
+    `model` as it stands, from its modules: each GroupNorm32 launches once
+    in the forward and once in the vjp; as the statistics alone in a
+    ResBlock on the Winograd prologue (a bf16 or fp16 torso with no live
+    dropout: its out_norm, and its in_norm unless it downsamples), as the
+    full kernel elsewhere. FFHQ-256: 65 full; ImageNet-256 on the Winograd
+    kernels: 22 full + 79 statistics alone. With `remat` the backward runs
+    the forward once more."""
+    import torch
+    from kdip_tpu_torch.models.layers import GroupNorm32, ResBlock
+    stats = 0
+    for b in model.modules():
+        if (isinstance(b, ResBlock) and b.winograd
+                and not b.out_layers[2].live
+                and b.in_layers[2].weight.dtype in (torch.bfloat16,
+                                                    torch.float16)):
+            stats += 1 if b.down else 2
+    full = sum(isinstance(m, GroupNorm32) for m in model.modules()) - stats
+    k = 2 if remat else 1
+    return {"groupnorm_fwd": k * full, "groupnorm_stats_fwd": k * stats,
+            "groupnorm_bwd": full, "groupnorm_stats_bwd": stats}
+
+
+class GroupNormLedger:
+    """Every GroupNorm launch of this process against what the ADM torsos'
+    calls ask for. ADMUNet.forward (SuperResADMUNet's too) and
+    EncoderADMUNet.forward, wrapped while the ledger is open (a global
+    module hook would slow every module's call): as each call on the card
+    starts, groupnorm_per_nfe's
+    forward launches at the model's state (a recompute under remat is a
+    call, and may stop before its outputs); once per backward that reaches
+    the call's outputs, its backward launches, less the head's norm where
+    the backward reaches only the feature map (`return_feature`). `take()`
+    returns the launches and the prediction since the last take. Only the
+    kernels' own cases (kernels_groupnorm) launch outside a torso."""
+
+    def __init__(self):
+        import torch
+        from kdip_tpu_torch.models.adm import ADMUNet, EncoderADMUNet
+        from kdip_tpu_torch.ops import groupnorm as gn
+        self.gn, self.torch = gn, torch
+        self.expected = dict.fromkeys(gn.launch_counts, 0)
+        self.mark = dict(gn.launch_counts), dict(self.expected)
+        self.wrapped = [(cls, cls.forward) for cls in (ADMUNet,
+                                                       EncoderADMUNet)]
+        for cls, fwd in self.wrapped:
+            cls.forward = self._wrap(fwd)
+
+    def _wrap(self, fwd):
+        def forward(module, *args, **kwargs):
+            on_card = self._on_card(module)
+            if on_card:
+                self._starts(module)
+            out = fwd(module, *args, **kwargs)
+            if on_card:
+                self._returns(module, out)
+            return out
+        return forward
+
+    def _on_card(self, module) -> bool:
+        p = next(module.parameters(), None)
+        return p is not None and p.is_cuda
+
+    def _starts(self, module):
+        per = groupnorm_per_nfe(module)
+        for k in ("groupnorm_fwd", "groupnorm_stats_fwd"):
+            self.expected[k] += per[k]
+
+    def _returns(self, module, out):
+        torch = self.torch
+        outs = out if isinstance(out, tuple) else (out,)
+        grads = [i for i, t in enumerate(outs)
+                 if torch.is_tensor(t) and t.requires_grad]
+        if not grads:
+            return
+        per = groupnorm_per_nfe(module)
+        seen = {}  # backward (graph task) -> the outputs it reached
+
+        def reached(i):
+            # a tensor hook, which (unlike register_multi_grad_hook's "all"
+            # mode) also runs where the output is the backward's root
+            def hook(grad):
+                task = torch._C._current_graph_task_id()
+                got = seen.setdefault(task, set())
+                if not got:  # every site below the head's norm
+                    self.expected["groupnorm_bwd"] += per["groupnorm_bwd"] - 1
+                    self.expected["groupnorm_stats_bwd"] += per[
+                        "groupnorm_stats_bwd"]
+                if i == 0 and 0 not in got:  # the head's norm
+                    self.expected["groupnorm_bwd"] += 1
+                got.add(i)
+            return hook
+        for i in grads:
+            outs[i].register_hook(reached(i))
+
+    def take(self):
+        counts = self.gn.launch_counts
+        got = {k: v - self.mark[0][k] for k, v in counts.items()}
+        want = {k: v - self.mark[1][k] for k, v in self.expected.items()}
+        self.mark = dict(counts), dict(self.expected)
+        return got, want
+
+    def close(self):
+        for cls, fwd in self.wrapped:
+            cls.forward = fwd
+
+
 def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
               winograd: bool = False, op_cfg=None, model_config=None,
               ode: bool = False, recon_mse=None, sampler: str = "heun",
@@ -856,6 +982,7 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
     import bench_torch
     from kdip_tpu_torch import sampling_api
     from kdip_tpu_torch.ops import dwt as D
+    from kdip_tpu_torch.ops import groupnorm as gn
     from kdip_tpu_torch.ops import winograd as Wg
     scfg = sampling_api.SamplerConfig(steps=steps or STEPS, ode=ode,
                                       sampler=sampler,
@@ -870,6 +997,7 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
     torch.cuda.reset_peak_memory_stats()
     D.reset_launch_counts()
     Wg.reset_launch_counts()
+    gn_before = dict(gn.launch_counts)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always", RuntimeWarning)
         t0 = time.perf_counter()
@@ -879,6 +1007,7 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
     launches = dict(D.launch_counts)
     modes = dict(D.matvec_mode_counts)
     wino_launches = dict(Wg.launch_counts)
+    gn_launches = {k: v - gn_before[k] for k, v in gn.launch_counts.items()}
     # Heun calls the denoiser twice a step but the last; the others once
     nfe = n * (2 * scfg.steps - 1 if scfg.sampler == "heun" else scfg.steps)
     amax = out.abs().max().item()
@@ -897,6 +1026,7 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
                               for w in caught),
            "dwt_launches": launches, "ot_matvec_by_mode": modes,
            "winograd_launches": wino_launches,
+           "groupnorm_launches": gn_launches,
            "max_abs_out": amax,
            "finite": bool(torch.isfinite(out).all()),
            "mse_vs_truth": ((out - x_true) ** 2).mean().item(),
@@ -916,9 +1046,180 @@ def run_slice(name, dev, v2: bool, gcfg, seed: int, n: int,
         if wino_launches != want:
             raise AssertionError(f"{name}: Winograd launches {wino_launches}"
                                  f", predicted {want}")
+        # one forward and one vjp an NFE, as the Winograd count says
+        want = {k: v * nfe for k, v in groupnorm_per_nfe(model).items()}
+        if gn_launches != want:
+            raise AssertionError(f"{name}: GroupNorm launches {gn_launches}"
+                                 f", predicted {want}")
     elif sum(wino_launches.values()):
         raise AssertionError(f"{name} launched the Winograd kernel")
     return rec, parts
+
+
+# The GroupNorm kernels' cases: the cells' 256 px GroupNorm sites, (name,
+# [B, C, H, W], dtype, FiLM, SiLU, form) with form "full" (group_norm) or
+# "stats" (affine_terms, the Winograd ResBlocks')
+GN_CASES = (("ffhq_film_silu", (8, 128, 256, 256), "bfloat16", True, True,
+             "full"),
+            ("ffhq_decoder_in", (8, 256, 256, 256), "bfloat16", False, True,
+             "full"),
+            ("ffhq_head", (8, 128, 256, 256), "float32", False, True, "full"),
+            ("imagenet_stats", (2, 256, 256, 256), "bfloat16", False, False,
+             "stats"),
+            ("imagenet_stats_512", (2, 512, 256, 256), "bfloat16", False,
+             False, "stats"))
+GN_REPS = 20
+HBM_BYTES_PER_S = 3.35e12
+# The GroupNorm kernels against their plain versions (tests/
+# test_torch_groupnorm_cuda.py's bounds). Both sides round the same values
+# at the same places; the float32 statistics are summed in another order.
+# A 16-bit forward: at least fwd_share of the outputs within one bfloat16
+# ulp, every one within 2^-6 of itself plus 2^-12 of the largest. A
+# float32 forward (the FFHQ head) at float32's own spacing: every output
+# within f32_fwd_ulps float32 ulps of itself plus f32_fwd_of_max of the
+# largest output (exact and one-pass float32 statistics on the CPU give
+# outputs 2.7e-7 of the largest apart at this shape; a kernel that
+# rounded anything to 16 bits would miss by ~2^-9 of the output).
+# (a, b) of the statistics alone: ab_rel of themselves plus of the
+# largest. Every gx within one ulp of its type plus bwd_of_max (16-bit)
+# or bwd_of_max_f32 of the largest |gx|: the sums' float32 noise, which
+# c1*x + c2 carries (float32 and float64 sums give gx 7e-7 of the largest
+# apart at this shape, on the CPU).
+GN_TOL = {"fwd_share": 0.999, "f32_fwd_ulps": 2,
+          "f32_fwd_of_max": 2 ** -18, "ab_rel": 1e-5, "bwd_of_max": 2 ** -10,
+          "bwd_of_max_f32": 2 ** -16}
+
+
+def gn_ulp(got, want, dtype):
+    """The spacing of dtype's values at the larger of |got| and |want|."""
+    import torch
+    mant = {"bfloat16": 7, "float16": 10, "float32": 23}[dtype]
+    m = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    return torch.exp2(torch.floor(torch.log2(m)) - mant)
+
+
+def gn_compare(y, y0, gx, gx0, dtype, form):
+    """The GroupNorm kernels' agreement with their plain versions, float64
+    differences; `ok` whether it is within GN_TOL's bounds (GN_TOL says
+    why). y, y0: the outputs (for the statistics alone, (a, b) stacked,
+    float32); gx, gx0: the gradients of x."""
+    import torch
+    y, y0, gx, gx0 = (t.double() for t in (y, y0, gx, gx0))
+    d = (y - y0).abs()
+    top = float(y0.abs().max())
+    if form == "stats":
+        within = (d <= GN_TOL["ab_rel"] * (y0.abs() + top)).all()
+        fwd = {"ab_err_of_max": float(d.max()) / top}
+        ok = bool(within)
+    elif dtype == "float32":
+        bound = (GN_TOL["f32_fwd_ulps"] * gn_ulp(y, y0, dtype)
+                 + GN_TOL["f32_fwd_of_max"] * top)
+        fwd = {"fwd_err_of_max": float(d.max()) / top,
+               "fwd_within_f32_ulp": float(
+                   (d <= gn_ulp(y, y0, dtype)).double().mean())}
+        ok = bool((d <= bound).all())
+    else:
+        share = float((d <= gn_ulp(y, y0, "bfloat16")).double().mean())
+        fwd = {"fwd_err_of_max": float(d.max()) / top,
+               "fwd_within_bf16_ulp": share}
+        ok = share >= GN_TOL["fwd_share"] and bool(
+            (d <= 2 ** -6 * y0.abs() + 2 ** -12 * top).all())
+    dg = (gx - gx0).abs()
+    gtop = float(gx0.abs().max())
+    rel = GN_TOL["bwd_of_max_f32" if dtype == "float32" else "bwd_of_max"]
+    ok = ok and bool((dg <= gn_ulp(gx, gx0, dtype) + rel * gtop).all())
+    return {**fwd, "bwd_err_of_max": float(dg.max()) / gtop, "ok": ok}
+
+
+def phase_kernels_groupnorm(dev):
+    """Each GroupNorm kernel (ops.groupnorm) at the cells' 256 px sites
+    against its plain version on the card (gn_compare, GN_TOL), and timed:
+    the kernel's device time (torch.profiler) and per call (CUDA events,
+    GN_REPS calls), the plain version per call, and the bytes bound at
+    3.35 TB/s: x read and y written forward, x and gy read and gx written
+    backward; x read, and x read and gx written, for the statistics alone.
+    The incoming gradient is x plus noise (for the statistics alone, the
+    gradients of a and b are a and b), so that the gradient through the
+    statistics, c1*x + c2 per (sample, group), is as large as gx itself: a
+    kernel that dropped or botched it would miss by the size of gx."""
+    import torch
+    from kdip_tpu_torch.ops import groupnorm as gn
+    G, EPS = 32, 1e-5
+
+    def per_call_ms(fn, reps=GN_REPS):
+        fn()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    rows = []
+    for name, shape, dt, film, silu, form in GN_CASES:
+        g = torch.Generator(device=dev).manual_seed(len(rows))
+        dtype = getattr(torch, dt)
+        x = (torch.randn(shape, generator=g, device=dev) + 0.2).to(dtype)
+        gy = (x.float() + 0.1 * torch.randn(shape, generator=g, device=dev)
+              ).to(dtype)
+        B, C = shape[:2]
+        w = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
+        b = 0.1 * torch.randn(C, generator=g, device=dev)
+        s = t = None
+        if film:
+            s, t = ((0.1 * torch.randn(B, C, generator=g, device=dev)
+                     ).to(dtype) for _ in range(2))
+        n, e = x.numel(), x.element_size()
+        if form == "full":
+            y, st = gn.group_norm_cuda(x, w, b, G, EPS, s, t, silu)
+            y0, _ = gn.group_norm_plain(x, w, b, G, EPS, s, t, silu)
+            gx, _ = gn.group_norm_backward_cuda(x, gy, w, b, st, G, EPS, s,
+                                                t, silu, want_sums=False)
+            gx0, _ = gn.group_norm_backward_plain(x, gy, w, b, st, G, EPS,
+                                                  s, t, silu)
+            fns = {"fwd": (lambda: gn.group_norm_cuda(
+                x, w, b, G, EPS, s, t, silu), lambda: gn.group_norm_plain(
+                x, w, b, G, EPS, s, t, silu), 2 * e * n),
+                "bwd": (lambda: gn.group_norm_backward_cuda(
+                    x, gy, w, b, st, G, EPS, s, t, silu, want_sums=False),
+                    lambda: gn.group_norm_backward_plain(
+                        x, gy, w, b, st, G, EPS, s, t, silu), 3 * e * n)}
+        else:
+            a, bb, st = gn.affine_terms_cuda(x, w, b, G, EPS)
+            a0, b0, _ = gn.affine_terms_plain(x, w, b, G, EPS)
+            y, y0 = torch.stack([a, bb]), torch.stack([a0, b0])
+            gx = gn.affine_terms_backward_cuda(x, a, bb, w, st, G, EPS)
+            gx0 = gn.affine_terms_backward_plain(x, a, bb, w, st, G, EPS)
+            fns = {"fwd": (lambda: gn.affine_terms_cuda(x, w, b, G, EPS),
+                           lambda: gn.affine_terms_plain(x, w, b, G, EPS),
+                           e * n),
+                   "bwd": (lambda: gn.affine_terms_backward_cuda(
+                       x, a, bb, w, st, G, EPS),
+                       lambda: gn.affine_terms_backward_plain(
+                           x, a, bb, w, st, G, EPS), 2 * e * n)}
+        torch.cuda.synchronize()
+        row = {"case": name, "shape": list(shape), "dtype": dt,
+               "film": film, "silu": silu, "form": form,
+               **gn_compare(y, y0, gx, gx0, dt, form)}
+        device = profiled_cases_ms([f[0] for f in fns.values()],
+                                   "groupnorm", 5)
+        for (kind, (kernel, plain, nbytes)), (dev_ms, _) in zip(
+                fns.items(), device):
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            row[kind] = {"device_ms": dev_ms,
+                         "per_call_ms": per_call_ms(kernel),
+                         "plain_ms": per_call_ms(plain, 3),
+                         "bound_ms": bound,
+                         "bound_share": bound / dev_ms if dev_ms else None}
+        if not row["ok"]:
+            raise AssertionError(f"groupnorm {name}: {row}")
+        rows.append(row)
+        del x, gy, y, y0, gx, gx0
+    emit({"phase": "kernels_groupnorm", "cases": rows})
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_nfe_compare(dev, gcfg, parts):
@@ -1117,13 +1418,16 @@ def phase_nfe_winograd(dev, gcfg, parts, name: str = "nfe_winograd"):
     differences between the variants are reported; hat_x0 = x0_mean +
     sigma^2 * vjp(mat) multiplies the vjp's noise where the Convert
     variance of random weights is small. Returns the kernels' launches of
-    one NFE (held exactly to winograd_per_nfe)."""
+    one NFE (held exactly to winograd_per_nfe); each variant's GroupNorm
+    launches are held to groupnorm_per_nfe at its own state (the direct
+    torso's every site the full kernel)."""
     import copy
 
     import torch
     from kdip_tpu_torch import guidance as gd
     from kdip_tpu_torch import precond
     from kdip_tpu_torch.models.layers import Conv2d
+    from kdip_tpu_torch.ops import groupnorm as gn
     from kdip_tpu_torch.ops import winograd as Wg
     model, tables, op, meas, x_true = parts
     sigma = WINO_NFE_SIGMA
@@ -1160,6 +1464,7 @@ def phase_nfe_winograd(dev, gcfg, parts, name: str = "nfe_winograd"):
         for k in variants:
             use(k)
             Wg.reset_launch_counts()
+            gn_before = dict(gn.launch_counts)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res[k] = den(x, sigma)
@@ -1170,6 +1475,10 @@ def phase_nfe_winograd(dev, gcfg, parts, name: str = "nfe_winograd"):
             if Wg.launch_counts != want:
                 raise AssertionError(f"{k} NFE: Winograd launches "
                                      f"{Wg.launch_counts}, expected {want}")
+            got = {n: v - gn_before[n] for n, v in gn.launch_counts.items()}
+            if got != groupnorm_per_nfe(model):
+                raise AssertionError(f"{k} NFE: GroupNorm launches {got}, "
+                                     f"expected {groupnorm_per_nfe(model)}")
     for k in variants:
         use(k)
         with torch.no_grad():
@@ -2620,6 +2929,9 @@ def run_imagenet_nfe(dev, gcfg):
     dwt_launches = dict(D.launch_counts)
     if launches != IMAGENET_WINO_PER_NFE:
         raise AssertionError(f"ImageNet NFE: {launches} Winograd launches")
+    if groupnorm_per_nfe(parts[0]) != IMAGENET_GN_PER_NFE:
+        raise AssertionError(f"ImageNet NFE: GroupNorm sites "
+                             f"{groupnorm_per_nfe(parts[0])}")
     if sum(dwt_launches.values()):
         raise AssertionError(f"ImageNet NFE: DWT launches {dwt_launches}")
     phase_winograd_shapes(dev, winograd_launch_shapes(parts[0], dev),
@@ -2638,7 +2950,8 @@ def phase_adm_rest_cpu_vs_card(dev):
     the input gradient of log p(y | x) (classifier guidance), the
     super-resolution UNet on a 16 px image, and the k-diffusion V1 and V2
     UNets with their variance outputs. Returns the phase's launch counts
-    (DWT, Winograd): no kernel is on these paths."""
+    (DWT, Winograd): neither kernel is on these paths (the ADM models' card
+    runs launch the GroupNorm kernels, which main's ledger holds)."""
     import copy
 
     import torch
@@ -3936,6 +4249,31 @@ def wino_kernel_rows(dev, launches):
     return rows
 
 
+def gn_kernel_rows(cases, by_slice):
+    """The kernels line's GroupNorm rows, from kernels_groupnorm's cases at
+    the hottest site of each form (b8's [8,128,256,256] bf16 FiLM + SiLU
+    site; ImageNet's [2,256,256,256] statistics alone), with each kernel's
+    launches by phase as the ledger counted them (kernels_groupnorm's own
+    among them)."""
+    case = {c["case"]: c for c in cases}
+    rows = []
+    for name, where, kind in (
+            ("groupnorm_fwd", "ffhq_film_silu", "fwd"),
+            ("groupnorm_bwd", "ffhq_film_silu", "bwd"),
+            ("groupnorm_stats_fwd", "imagenet_stats", "fwd"),
+            ("groupnorm_stats_bwd", "imagenet_stats", "bwd")):
+        c = case[where]
+        by = {s: v[name] for s, v in by_slice.items() if v[name]}
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "kdip_tpu_torch/csrc/groupnorm_silu.cu",
+            "replaces": "none: kdip_tpu leaves _FusedGroupNorm to XLA "
+                        "(kdip_tpu/models/layers.py:40-47)",
+            "launches": sum(by.values()), "launches_by_slice": by,
+            "shape": c["shape"], "dtype": c["dtype"], **c[kind]})
+    return rows
+
+
 def kernel_rows(dev, launches):
     """The kernels line: each kernel at the slice's shape [1, 3, 256, 256]
     float32, level 3 (one sample under the per-sample loop)."""
@@ -4654,12 +4992,22 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     seconds = {}
+    ledger = GroupNormLedger()
+    gn_by_slice, gn_mismatch = {}, {}
 
     def timed(name, fn, *args, **kw):
-        """fn(*args, **kw), its seconds recorded under `name`."""
+        """fn(*args, **kw), its seconds recorded under `name`, and its
+        GroupNorm launches against the ledger's prediction (mismatches
+        gathered, to fail the run at its end)."""
+        ledger.take()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         seconds[name] = time.perf_counter() - t0
+        got, want = ledger.take()
+        if sum(got.values()):
+            gn_by_slice[name] = got
+        if got != want and name != "kernels_groupnorm":
+            gn_mismatch[name] = {"launches": got, "predicted": want}
         return out
 
     timed("device_and_build", phase_device_and_build)
@@ -4712,6 +5060,7 @@ def main() -> int:
     check_no_dwt(batched)
 
     timed("kernels_winograd", phase_kernels_winograd, dev)
+    gn_cases = timed("kernels_groupnorm", phase_kernels_groupnorm, dev)
     rec, parts = timed("slice_convert_winograd", run_slice,
                        "slice_convert_winograd", dev, False, convert_cfg,
                        seed=2, n=N_SAMPLES, winograd=True)
@@ -4828,7 +5177,13 @@ def main() -> int:
     for row in wrows:
         row["launches_by_slice"] = {s: c[row["name"]]
                                     for s, c in wino_by_slice.items()}
-    emit({"kernels": rows + wrows})
+    ledger.close()
+    emit({"kernels": rows + wrows + gn_kernel_rows(gn_cases, gn_by_slice)})
+    emit({"phase": "groupnorm_launches", "by_slice": gn_by_slice,
+          "mismatches": gn_mismatch})
+    if gn_mismatch:
+        raise AssertionError(f"GroupNorm launches off the torsos' count in "
+                             f"{sorted(gn_mismatch)}")
     emit({"phase": "done", "total_s": time.perf_counter() - t_start,
           "phase_seconds": seconds})
     print(nvidia_smi(), flush=True)

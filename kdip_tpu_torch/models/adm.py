@@ -174,8 +174,8 @@ class ADMUNet(nn.Module):
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=1), emb)
         feature = h.to(x.dtype)
-        norm, act, conv = self.out
-        out = conv(act(norm(feature)).to(dtype)).to(x.dtype)
+        norm, _, conv = self.out
+        out = conv(norm(feature, silu=True).to(dtype)).to(x.dtype)
         if return_feature:
             return out, feature
         return out

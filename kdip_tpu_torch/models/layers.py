@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import winograd
+from ..ops import groupnorm, winograd
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -39,7 +39,12 @@ class GroupNorm32(nn.GroupNorm):
     mean-of-squares, variance clamped at 0, then one `x*a + b` rounded back
     to the input dtype: the arithmetic of `kdip_tpu`'s `_FusedGroupNorm`
     (layers.py:74-92). The weight and bias stay float32 in a low-precision
-    torso."""
+    torso.
+
+    forward optionally applies the ResBlock's FiLM terms and the SiLU that
+    follow the norm, silu(gn(x) * (1 + scale) + shift), each rounded to the
+    input dtype as the eager ops round them: one `ops.groupnorm` kernel on
+    the card, forward and backward, instead of ~55 eager ops."""
 
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__(num_groups, channels, eps=1e-5)
@@ -49,21 +54,15 @@ class GroupNorm32(nn.GroupNorm):
         gn(x) == x*a + b before the rounding (`kdip_tpu` _FusedGroupNorm's
         return_affine, layers.py:53-97): what the Winograd kernel's fused
         prologue takes."""
-        B, C = x.shape[:2]
-        G = self.num_groups
-        x32 = x.to(torch.float32).reshape(B, G, -1)
-        m = x32.mean(dim=-1)
-        m2 = x32.square().mean(dim=-1)
-        rstd = torch.rsqrt((m2 - m.square()).clamp(min=0.0) + self.eps)
-        a = rstd[:, :, None] * self.weight.reshape(G, C // G)[None]
-        b = self.bias.reshape(G, C // G)[None] - m[:, :, None] * a
-        return a.reshape(B, C), b.reshape(B, C)
+        return groupnorm.affine_terms(x, self.weight, self.bias,
+                                      self.num_groups, self.eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, b = self.affine_terms(x)
-        shape = a.shape + (1,) * (x.ndim - 2)
-        return (x.to(torch.float32) * a.reshape(shape)
-                + b.reshape(shape)).to(x.dtype)
+    def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                shift: Optional[torch.Tensor] = None,
+                silu: bool = False) -> torch.Tensor:
+        return groupnorm.group_norm(x, self.weight, self.bias,
+                                    self.num_groups, self.eps, scale, shift,
+                                    silu)
 
 
 def conv_nd(dims: int, cin: int, cout: int, kernel_size: int, dtype,
@@ -276,28 +275,28 @@ class ResBlock(nn.Module):
         return h
 
     def forward(self, x, emb):
-        norm, act, conv = self.in_layers
-        out_norm, out_act, drop, out_conv = self.out_layers
+        norm, _, conv = self.in_layers
+        out_norm, _, drop, out_conv = self.out_layers
         if (self.winograd and not drop.live
                 and conv.weight.dtype in (torch.bfloat16, torch.float16)):
             return self._forward_fused(x, emb)
-        h = act(norm(x))
+        h = norm(x, silu=True)
         if self.up or self.down:
             h, x = self._resample(h), self._resample(x)
         h = conv(h)
         emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = out_conv(drop(out_act(out_norm(h) * (1 + scale) + shift)))
+            h = out_conv(drop(out_norm(h, scale, shift, silu=True)))
         else:
-            h = out_conv(drop(out_act(out_norm(h + emb_out))))
+            h = out_conv(drop(out_norm(h + emb_out, silu=True)))
         return self.skip_connection(x) + h
 
     def _forward_fused(self, x, emb):
-        norm, act, conv = self.in_layers
+        norm, _, conv = self.in_layers
         out_norm, _, _, out_conv = self.out_layers
         if self.down:
-            h = self._resample(act(norm(x)))
+            h = self._resample(norm(x, silu=True))
             x = self._resample(x)
             h = conv(h)
         else:
